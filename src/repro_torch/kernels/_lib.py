@@ -102,8 +102,12 @@ def lib() -> ctypes.CDLL:
         handle.split_matmul_f32.argtypes = [p, p, p, i, i, i, i, p]
         handle.flash_attention_fwd.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        ll = ctypes.c_longlong
+        for fn in (handle.ssd_scan_bf16, handle.ssd_scan_f32):
+            fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [p]
         for fn in (handle.split_matmul_bf16, handle.split_matmul_f32,
-                   handle.flash_attention_fwd):
+                   handle.flash_attention_fwd, handle.ssd_scan_bf16,
+                   handle.ssd_scan_f32):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

@@ -71,3 +71,83 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + n] = o.permute(0, 3, 1, 2, 4)
     return out.to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+                 init_state: Optional[torch.Tensor] = None) -> tuple:
+    """Mamba2 SSD chunk scan, a line-by-line port of the JAX model path's
+    `models/ssm.py::ssd_chunk_scan` (ragged S padded to a multiple of
+    the chunk, mask before exp, inter-chunk state carried in fp32).
+
+    x:(B,S,nh,hd) dt:(B,S,nh) a_log:(nh,) [log(-A)] b,c:(B,S,ns)
+    -> (y fp32 (B,S,nh,hd), final_state fp32 (B,nh,hd,ns))."""
+    B, S, nh, hd = x.shape
+    ns = b.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    Sp = S + pad
+    nc = Sp // Q
+
+    a = -torch.exp(a_log.float())                        # (nh,) A < 0
+    dt = dt.float()
+    dA = dt * a                                          # (B,Sp,nh)
+    xd = x.float() * dt[..., None]                       # dt-weighted input
+
+    dAc = dA.reshape(B, nc, Q, nh)
+    xc = xd.reshape(B, nc, Q, nh, hd)
+    bc = b.reshape(B, nc, Q, ns).float()
+    cc = c.reshape(B, nc, Q, ns).float()
+
+    csum = torch.cumsum(dAc, dim=2)                      # (B,nc,Q,nh)
+    diff = csum[:, :, :, None, :] - csum[:, :, None, :, :]  # (B,nc,Q,Q,nh)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    # mask BEFORE exp: masked (i<j) entries have diff > 0
+    att = torch.exp(diff.masked_fill(~mask[None, None, :, :, None],
+                                     float("-inf")))
+    cb = torch.einsum("bnis,bnjs->bnij", cc, bc)         # (B,nc,Q,Q)
+    y_intra = torch.einsum("bnij,bnijh,bnjhd->bnihd", cb, att, xc)
+
+    decay_to_end = torch.exp(csum[:, :, -1:, :] - csum)  # (B,nc,Q,nh)
+    states = torch.einsum("bnjs,bnjh,bnjhd->bnhds", bc, decay_to_end, xc)
+
+    chunk_decay = torch.exp(csum[:, :, -1, :])           # (B,nc,nh)
+    s = (init_state.float() if init_state is not None
+         else torch.zeros(B, nh, hd, ns, device=x.device))
+    prev = []
+    for n in range(nc):
+        prev.append(s)
+        s = s * chunk_decay[:, n, :, None, None] + states[:, n]
+    prev_states = torch.stack(prev, dim=1)               # (B,nc,nh,hd,ns)
+
+    y_inter = torch.einsum("bnis,bnih,bnhds->bnihd", cc, torch.exp(csum),
+                           prev_states)
+    y = (y_intra + y_inter).reshape(B, Sp, nh, hd)[:, :S]
+    return y, s
+
+
+def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor,
+                       a_log: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor,
+                       init_state: Optional[torch.Tensor] = None) -> tuple:
+    """The naive per-step recurrence, a port of the JAX `models/ssm.py::
+    ssd_ref` oracle.  Same contract as `ssd_scan_ref`."""
+    B, S, nh, hd = x.shape
+    ns = b.shape[-1]
+    a = -torch.exp(a_log.float())
+    s = (init_state.float() if init_state is not None
+         else torch.zeros(B, nh, hd, ns, device=x.device))
+    dt = dt.float()
+    ys = []
+    for t in range(S):
+        dec = torch.exp(dt[:, t] * a)                    # (B,nh)
+        upd = torch.einsum("bs,bnh->bnhs", b[:, t].float(),
+                           x[:, t].float() * dt[:, t][..., None])
+        s = s * dec[:, :, None, None] + upd
+        ys.append(torch.einsum("bs,bnhs->bnh", c[:, t].float(), s))
+    return torch.stack(ys, dim=1), s

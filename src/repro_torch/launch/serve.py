@@ -11,6 +11,10 @@ engine.  `--cpu` runs on the CPU with the kernels' plain versions.
     python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --device h100-sxm --memory-limit-gib 64 --prompt-len 256
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --reduced --cpu
+    python -m repro_torch.launch.serve --arch mamba2-2.7b --reduced --cpu
+
+The dense (phi4-mini-3.8b, qwen1.5-0.5b, llama3-405b) and SSM
+(mamba2-2.7b) decoder families are ported; the others raise.
 
 Multi-replica fleet planning (`--fleet` in the JAX launcher) needs the
 traffic simulator and comes with a later slice.

@@ -54,7 +54,8 @@ def build_model(run: RunConfig, plan=None) -> Built:
     tp = run.mesh.model_parallel
     decisions: Dict[str, Decision] = plan.decisions if plan else {}
     specs = build_specs(cfg, tp)
-    model = Model(cfg=cfg, geom=attn_geometry(cfg, tp),
+    geom = attn_geometry(cfg, tp) if cfg.has_attention else None
+    model = Model(cfg=cfg, geom=geom,
                   pset=plan_layouts(specs, decisions), decisions=decisions,
                   swa_window=(run.swa_window
                               if run.shape.name == "long_500k"

@@ -1,12 +1,13 @@
-"""Transformer assembly, dense decoder path (serving).
+"""Transformer assembly, dense and SSM decoder paths (serving).
 
     dense : x += attn(norm(x));   x += ffn(norm(x))
+    ssm   : x += ssd(norm(x))    [x += ffn(norm(x)) where d_ff]
 
 Parameters are stacked over layers, as in the JAX package; its
 `lax.scan` over layers becomes a Python loop over `w[l]` (a view, no
 copy).  The OSDP plan decides per-operator segmentation through
-`sharding.specs`.  MoE, SSM, hybrid, VLM and audio families, the
-training forward/loss and remat come with later slices.
+`sharding.specs`.  MoE, hybrid, VLM and audio families, the training
+forward/loss and remat come with later slices.
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, SSM, ModelConfig
 from repro_torch.core.cost_model import Decision
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AttnGeom, attn_geometry, norm,
                                        positions_for)
 from repro_torch.sharding.specs import ParamSet, WeightSpec, seg_matmul
@@ -28,10 +30,11 @@ LayerParams = Dict[str, torch.Tensor]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE or cfg.is_moe or cfg.has_ssm:
+    if cfg.family not in (DENSE, SSM) or cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (this "
-            f"slice runs the dense decoder family)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
+            f"runs the dense and ssm decoder families; hybrid, moe, vlm and "
+            f"audio come later)")
 
 
 # ---------------------------------------------------------------------------
@@ -58,30 +61,52 @@ def build_specs(cfg: ModelConfig, tp_size: int) -> List[WeightSpec]:
     if ln:
         w("final_norm/bias", (d,), "final_norm", init="zeros")
 
-    geom = attn_geometry(cfg, tp_size)
-    qf, kf = geom.q_flat, geom.kv_flat
-    tp_q = 2 if geom.tp else None
-    tp_b = 1 if geom.tp else None
-    w("layers/attn/wq", (L, d, qf), "layers.attn_qkv", tp=tp_q, zdp=1,
-      stacked=True, init="fan_in")
-    w("layers/attn/wk", (L, d, kf), "layers.attn_qkv", zdp=1,
-      stacked=True, init="fan_in")
-    w("layers/attn/wv", (L, d, kf), "layers.attn_qkv", zdp=1,
-      stacked=True, init="fan_in")
-    if cfg.qkv_bias:
-        w("layers/attn/bq", (L, qf), "layers.attn_qkv", tp=tp_b,
-          init="zeros", stacked=True)
-        w("layers/attn/bk", (L, kf), "layers.attn_qkv", init="zeros",
+    geom = attn_geometry(cfg, tp_size) if cfg.has_attention else None
+    if geom is not None:
+        qf, kf = geom.q_flat, geom.kv_flat
+        tp_q = 2 if geom.tp else None
+        tp_b = 1 if geom.tp else None
+        w("layers/attn/wq", (L, d, qf), "layers.attn_qkv", tp=tp_q, zdp=1,
+          stacked=True, init="fan_in")
+        w("layers/attn/wk", (L, d, kf), "layers.attn_qkv", zdp=1,
+          stacked=True, init="fan_in")
+        w("layers/attn/wv", (L, d, kf), "layers.attn_qkv", zdp=1,
+          stacked=True, init="fan_in")
+        if cfg.qkv_bias:
+            w("layers/attn/bq", (L, qf), "layers.attn_qkv", tp=tp_b,
+              init="zeros", stacked=True)
+            w("layers/attn/bk", (L, kf), "layers.attn_qkv", init="zeros",
+              stacked=True)
+            w("layers/attn/bv", (L, kf), "layers.attn_qkv", init="zeros",
+              stacked=True)
+        w("layers/attn/wo", (L, qf, d), "layers.attn_out",
+          tp=(1 if geom.tp else None), zdp=2, stacked=True, init="fan_in")
+        w("layers/attn/norm_scale", (L, d), "layers.attn_norm", init="ones",
           stacked=True)
-        w("layers/attn/bv", (L, kf), "layers.attn_qkv", init="zeros",
+        if ln:
+            w("layers/attn/norm_bias", (L, d), "layers.attn_norm",
+              init="zeros", stacked=True)
+
+    if cfg.has_ssm:
+        di, ns, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads
+        w("layers/ssm/w_zx", (L, d, 2 * di), "layers.ssm_in", tp=2, zdp=1,
+          stacked=True, init="fan_in")
+        w("layers/ssm/w_bcdt", (L, d, 2 * ns + nh), "layers.ssm_in", zdp=1,
+          stacked=True, init="fan_in")
+        w("layers/ssm/wo", (L, di, d), "layers.ssm_out", tp=1, zdp=2,
+          stacked=True, init="fan_in")
+        w("layers/ssm/A_log", (L, nh), "layers.ssm_small", init="ssm_a",
           stacked=True)
-    w("layers/attn/wo", (L, qf, d), "layers.attn_out",
-      tp=(1 if geom.tp else None), zdp=2, stacked=True, init="fan_in")
-    w("layers/attn/norm_scale", (L, d), "layers.attn_norm", init="ones",
-      stacked=True)
-    if ln:
-        w("layers/attn/norm_bias", (L, d), "layers.attn_norm",
-          init="zeros", stacked=True)
+        w("layers/ssm/D", (L, nh), "layers.ssm_small", init="ones",
+          stacked=True)
+        w("layers/ssm/dt_bias", (L, nh), "layers.ssm_small", init="zeros",
+          stacked=True)
+        w("layers/ssm/conv_w", (L, ssm_mod.CONV_K, di + 2 * ns),
+          "layers.ssm_small", init="fan_in", stacked=True)
+        w("layers/ssm/gate_norm", (L, di), "layers.ssm_small", init="ones",
+          tp=1, stacked=True)
+        w("layers/ssm/norm_scale", (L, d), "layers.ssm_norm", init="ones",
+          stacked=True)
 
     ff_mult = 2 if cfg.act == "swiglu" else 1
     if cfg.d_ff:
@@ -105,7 +130,7 @@ def build_specs(cfg: ModelConfig, tp_size: int) -> List[WeightSpec]:
 @dataclass
 class Model:
     cfg: ModelConfig
-    geom: AttnGeom
+    geom: Optional[AttnGeom]     # None when the model has no attention
     pset: ParamSet
     decisions: Dict[str, Decision]
     swa_window: int = 0          # override window for long-context decode
@@ -154,16 +179,24 @@ class Model:
         return logits
 
     def _ffn(self, lp, x):
+        if not self.cfg.d_ff:
+            return x
         h = self._norm(lp, x, "layers/ffn/norm")
         return x + ffn_mod.ffn_forward(self.cfg, self.pset, lp, h)
 
     # -- serving --------------------------------------------------------------
     def init_caches(self, batch: int, cache_len: int,
                     device="cuda") -> Dict[str, Any]:
-        win = self._window()
-        alen = min(cache_len, win) if win else cache_len
-        return {"attn": attn_mod.init_kv_cache(self.cfg, self.geom, batch,
-                                               alen, device=device)}
+        caches: Dict[str, Any] = {}
+        if self.cfg.has_attention:
+            win = self._window()
+            alen = min(cache_len, win) if win else cache_len
+            caches["attn"] = attn_mod.init_kv_cache(
+                self.cfg, self.geom, batch, alen, device=device)
+        if self.cfg.has_ssm:
+            caches["ssm"] = ssm_mod.init_ssm_cache(self.cfg, batch,
+                                                   device=device)
+        return caches
 
     def decode_step(self, params: Dict[str, torch.Tensor],
                     caches: Dict[str, Any], tokens: torch.Tensor, t
@@ -172,16 +205,25 @@ class Model:
         scalar position or a (B,) vector (continuous batching decodes
         every slot at its own position).  Updates `caches` in place and
         returns (logits (B,1,V), caches)."""
+        cfg = self.cfg
         x = params["embed/tok"][tokens.long()]
         layers = self._layers(params)
-        cache = caches["attn"]
-        for l in range(self.cfg.n_layers):
+        for l in range(cfg.n_layers):
             lp = self._layer(layers, l)
-            h = self._norm(lp, x, "layers/attn/norm")
-            a, _ = attn_mod.attn_decode(
-                self.cfg, self.geom, self.pset, lp, h, t,
-                {k: v[l] for k, v in cache.items()}, window=self._window())
-            x = self._ffn(lp, x + a)
+            if cfg.has_attention:
+                h = self._norm(lp, x, "layers/attn/norm")
+                a, _ = attn_mod.attn_decode(
+                    cfg, self.geom, self.pset, lp, h, t,
+                    {k: v[l] for k, v in caches["attn"].items()},
+                    window=self._window())
+                x = x + a
+            elif cfg.has_ssm:
+                h = self._norm(lp, x, "layers/ssm/norm")
+                s, _ = ssm_mod.ssm_decode(
+                    cfg, self.pset, lp, h,
+                    {k: v[l] for k, v in caches["ssm"].items()})
+                x = x + s
+            x = self._ffn(lp, x)
         return self.logits(params, x), caches
 
     def prefill(self, params: Dict[str, torch.Tensor],
@@ -200,15 +242,24 @@ class Model:
         target = cache_len or S
         alen = min(target, win) if win else target
         layers = self._layers(params)
-        per_layer = []
+        per_layer: Dict[str, List[Dict[str, torch.Tensor]]] = {}
         for l in range(cfg.n_layers):
             lp = self._layer(layers, l)
-            h = self._norm(lp, x, "layers/attn/norm")
-            a, kv = _attn_with_kv(self, lp, h, positions, win)
-            per_layer.append(_kv_to_cache(kv, alen))
-            x = self._ffn(lp, x + a)
-        caches = {"attn": {k: torch.stack([c[k] for c in per_layer])
-                           for k in ("k", "v", "pos")}}
+            if cfg.has_attention:
+                h = self._norm(lp, x, "layers/attn/norm")
+                a, kv = _attn_with_kv(self, lp, h, positions, win)
+                per_layer.setdefault("attn", []).append(
+                    _kv_to_cache(kv, alen))
+                x = x + a
+            elif cfg.has_ssm:
+                h = self._norm(lp, x, "layers/ssm/norm")
+                s, st = _ssm_with_state(self, lp, h)
+                per_layer.setdefault("ssm", []).append(st)
+                x = x + s
+            x = self._ffn(lp, x)
+        caches = {name: {k: torch.stack([c[k] for c in per])
+                         for k in per[0]}
+                  for name, per in per_layer.items()}
         return self.logits(params, x[:, -1:]), caches
 
 
@@ -234,3 +285,10 @@ def _kv_to_cache(kv, alen: int):
     vc[:, slot] = v[:, S - take:]
     pc[:, slot] = pos[None]
     return {"k": kc, "v": vc, "pos": pc}
+
+
+def _ssm_with_state(model: Model, lp, h):
+    """The SSD block and this layer's cache: the final SSD state and the
+    conv inputs of the last K-1 steps, both fp32."""
+    out, state, conv_state = ssm_mod.ssm_block(model.cfg, model.pset, lp, h)
+    return out, {"state": state, "conv": conv_state.float()}

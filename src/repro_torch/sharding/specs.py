@@ -34,6 +34,7 @@ class WeightSpec:
     tp_axis: Optional[int] = None   # dim sharded over 'model' (None = no TP)
     zdp_axis: Optional[int] = None  # dim OSDP may shard (None = always DP)
     init: str = "normal"            # "normal" | "zeros" | "ones" | "fan_in"
+                                    # | "ssm_a"
     init_scale: float = 0.02
     dtype: torch.dtype = torch.bfloat16
     stacked: bool = False           # leading dim is the layer axis
@@ -142,6 +143,11 @@ def _init_tensor(spec: WeightSpec, shape: Tuple[int, ...],
         return torch.zeros(shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=spec.dtype, device=device)
+    if spec.init == "ssm_a":
+        # Mamba2 A init: -exp(U[log 1, log 16]) stored as log(-A)
+        u = torch.rand(shape, generator=gen, device=device)
+        return (math.log(1.0) + (math.log(16.0) - math.log(1.0)) * u
+                ).to(spec.dtype)
     scale = spec.init_scale
     if spec.init == "fan_in":
         fan = shape[-2] if len(shape) >= 2 else shape[-1]

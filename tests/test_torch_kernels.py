@@ -22,6 +22,7 @@ from repro_torch.convert import to_torch
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import split_matmul as tsplit
+from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.models import attention as tattn
 
 DTYPES = ["float32", "bfloat16"]
@@ -153,33 +154,61 @@ def test_attention_ref_matches_jax_oracle():
 
 # --- dispatch ---------------------------------------------------------------
 
-def test_ops_take_plain_versions_on_cpu():
+KERNELS = ["split_matmul", "flash_attention", "ssd_scan"]
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def _dispatch_case(name, rng):
+    """(ops call, plain version) on the same CPU tensors."""
+    f = lambda shape: torch.from_numpy(_rand(rng, shape, "float32"))
+    if name == "split_matmul":
+        x, w = f((8, 40)), f((40, 24))
+        return ops.split_matmul(x, w), ref.split_matmul_ref(x, w)
+    if name == "flash_attention":
+        q, k = f((1, 9, 1, 2, 16)), f((1, 9, 1, 16))
+        return (ops.flash_attention(q, k, k, causal=True),
+                ref.flash_attention_ref(q, k, k, causal=True))
+    args = (f((2, 21, 3, 8)), f((2, 21, 3)).abs(), f((3,)).abs(),
+            f((2, 21, 4)), f((2, 21, 4)))
+    s0 = f((2, 3, 8, 4))
+    return (ops.ssd_scan(*args, chunk=8, init_state=s0),
+            ref.ssd_scan_ref(*args, chunk=8, init_state=s0))
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_ops_take_plain_versions_on_cpu(name):
     ops.reset_launch_counts()
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(_rand(rng, (8, 40), "float32"))
-    w = torch.from_numpy(_rand(rng, (40, 24), "float32"))
-    torch.testing.assert_close(ops.split_matmul(x, w),
-                               ref.split_matmul_ref(x, w))
-    q = torch.from_numpy(_rand(rng, (1, 9, 1, 2, 16), "float32"))
-    k = torch.from_numpy(_rand(rng, (1, 9, 1, 16), "float32"))
-    torch.testing.assert_close(
-        ops.flash_attention(q, k, k, causal=True),
-        ref.flash_attention_ref(q, k, k, causal=True))
-    assert ops.launch_counts() == {"split_matmul": 0, "flash_attention": 0}
+    got, want = _dispatch_case(name, np.random.default_rng(1))
+    torch.testing.assert_close(got, want)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
-def test_cuda_wrappers_refuse_cpu_tensors():
-    """The kernel wrappers never compute on the CPU: no fallback."""
-    x = torch.zeros(4, 4)
+def _wrapper_call(name, dev="cpu"):
+    """The CUDA wrapper (or, with dev="meta", `ops` on mixed devices)
+    on tensors of the CPU."""
+    z = lambda *shape, d="cpu": torch.zeros(*shape, device=d)
+    if name == "split_matmul":
+        if dev == "meta":
+            return lambda: ops.split_matmul(z(4, 4), z(4, 4, d="meta"))
+        return lambda: tsplit.split_matmul(z(4, 4), z(4, 4))
+    if name == "flash_attention":
+        fn = ops.flash_attention if dev == "meta" else tflash.flash_attention
+        return lambda: fn(z(1, 4, 1, 1, 64), z(1, 4, 1, 64, d=dev),
+                          z(1, 4, 1, 64), causal=True)
+    fn = ops.ssd_scan if dev == "meta" else tssd.ssd_scan
+    return lambda: fn(z(1, 4, 2, 8), z(1, 4, 2), z(2), z(1, 4, 4, d=dev),
+                      z(1, 4, 4), chunk=4)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_cuda_wrappers_refuse_cpu_tensors(name):
+    """The kernel wrappers never compute on the CPU: no fallback; `ops`
+    refuses inputs on two devices."""
     with pytest.raises(ValueError, match="CUDA"):
-        tsplit.split_matmul(x, x)
-    q = torch.zeros(1, 4, 1, 1, 64)
-    k = torch.zeros(1, 4, 1, 64)
-    with pytest.raises(ValueError, match="CUDA"):
-        tflash.flash_attention(q, k, k, causal=True)
+        _wrapper_call(name)()
     with pytest.raises(ValueError, match="all on the CPU"):
-        ops.split_matmul(x, torch.zeros(4, 4, device="meta"))
-    assert ops.launch_counts() == {"split_matmul": 0, "flash_attention": 0}
+        _wrapper_call(name, "meta")()
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_bf16_conversion_is_bit_exact():

@@ -200,7 +200,8 @@ def test_cpu_model_path_launches_no_kernel():
     ops.reset_launch_counts()
     tb.model.prefill(tp, {"tokens": torch.from_numpy(
         _prompts(tb.model.cfg, 1, 8))})
-    assert ops.launch_counts() == {"split_matmul": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"split_matmul": 0, "flash_attention": 0,
+                                   "ssd_scan": 0}
 
 
 def test_init_is_seeded_and_segmented(monkeypatch):

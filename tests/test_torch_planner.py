@@ -57,6 +57,9 @@ SERVE_ROWS = [
     ("qwen1.5-0.5b", dict(n_devices=8, memory_limit_gib=1.0), None),
     ("llama3-405b", dict(n_devices=8, memory_limit_gib=16.0), None),
     ("hymba-1.5b", dict(n_devices=1, memory_limit_gib=16.0), None),
+    # chip_smoke.py's mamba2 serve plan
+    ("mamba2-2.7b", dict(prompt_len=512, decode_len=32, n_devices=1,
+                         memory_limit_gib=64.0), "h100-sxm"),
 ]
 
 
@@ -83,7 +86,8 @@ def test_search_serve_identical(arch, kw, preset):
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen1.5-0.5b",
-                                  "llama3-405b", "hymba-1.5b"])
+                                  "llama3-405b", "hymba-1.5b",
+                                  "mamba2-2.7b"])
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
 def test_describe_identical(arch, shape):
     _same(jdescribe(jget_arch(arch), jget_shape(shape)),
