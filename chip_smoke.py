@@ -14,11 +14,14 @@ the final line is not printed):
    attention (1, S, 8, 3, 128) causal at a ragged and a full prompt;
    mamba2-2.7b: K=2560 with N in {10240, 336, 50432} and K=5120 with
    N=2560 at the same row counts, the SSD scan (B, S, 80, 64) with state
-   128, chunk 256, at (1, 333), (1, 512) and (8, 512)), and time kernel,
-   plain version
-   and one PyTorch library call where one computes the same function;
-   then the kernels' other options (f32, ragged shapes, windows, an
-   initial state, hymba-1.5b's SSD shapes...);
+   128, chunk 256, at (1, 333), (1, 512) and (8, 512)); print the
+   `split_matmul` design each shape takes (fail if one takes the general
+   first-version kernel); time kernel, plain version and one PyTorch
+   library call where one computes the same function (device time from
+   a CUDA graph of 20 calls, and the eager time with the host's launch
+   cost); then the kernels' other options (f32, ragged shapes, each
+   matmul design at its edge cases, windows, an initial state, hymba-1.5b's
+   SSD shapes...);
 3. for each of phi4-mini-3.8b and mamba2-2.7b: plan it with
    `search_serve` for the h100-sxm preset, build it at full width with
    random bf16 weights from --seed, and serve --requests greedy requests
@@ -28,7 +31,9 @@ the final line is not printed):
 4. on one prompt per model, check the kernel path's prefill logits
    against the same model run with the plain versions on the card, at
    full depth and on the first 4 layers of the same weights, with the
-   residual stream's size and its reordering divergence by layer;
+   residual stream's size and its reordering divergence by layer; a
+   second prefill of the prompt must give identical logits (split-K
+   sums its partials in a fixed order, with no atomics);
 5. print a {"kernels": [...]} line, the card's name and power limit, the
    serve metrics, and last {"ok": true, "device": {...}}.
 
@@ -110,6 +115,36 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _ptxas(log: str) -> list:
+    """One line a kernel from nvcc's `-Xptxas -v` output: its name (the
+    template arguments kept) with its registers, spills and static
+    shared memory."""
+    import re
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            # name<template args> from the mangled name in the anonymous
+            # namespace: ..._cu_<8 hex><len><id>[<len><id>...]I<args>E...
+            rest = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                          m.group(1))
+            ids = []
+            while rest[:1].isdigit():
+                n = int(re.match(r"\d+", rest).group())
+                rest = rest[len(str(n)):]
+                ids.append(rest[:n])
+                rest = rest[n:]
+            args = [a or ("bf16" if b else "float") for a, b, _ in
+                    re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(^If)",
+                               rest.split("EEv")[0])] \
+                if rest.startswith("I") else []
+            name = "::".join(ids) + (f"<{', '.join(args)}>" if args else "")
+        elif name and ("spill" in ln or "registers" in ln):
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}"
+                       if "ptxas info" in ln else f"{name}: {ln.strip()}")
+    return out
+
+
 def _time_ms(torch, fn, args_list, iters=20, warmup=3) -> float:
     """Mean device time of fn(*args) over `iters` calls, cycling through
     `args_list` (distinct weight copies keep L2 cold, as on the path)."""
@@ -126,6 +161,30 @@ def _time_ms(torch, fn, args_list, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(torch, fn, args_list, iters=20) -> float:
+    """Device time of fn(*args) per call: `iters` calls (cycling through
+    `args_list`) captured in one CUDA graph, one replay timed with CUDA
+    events.  Unlike `_time_ms` no host work is timed, so a product that
+    takes less device time than Python takes to launch it still reads
+    its own time."""
+    for a in args_list[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # --- phase 2: kernels against their plain versions --------------------------
 
 def check_split_matmul(torch, M, K, N, gen):
@@ -137,6 +196,10 @@ def check_split_matmul(torch, M, K, N, gen):
     copies = max(1, min(8, math.ceil(120e6 / w_bytes)))
     ws = [(torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K))
           .to(torch.bfloat16) for _ in range(copies)]
+    plan = sm.plan_for(x, ws[0], 512)
+    if plan.variant == "general":
+        _fail(f"split_matmul {M}x{K}x{N}: a path shape took the general "
+              f"kernel ({plan.reason})")
     y = sm.split_matmul(x, ws[0])
     torch.cuda.synchronize()
     y_ref = ref.split_matmul_ref(x, ws[0])
@@ -146,12 +209,15 @@ def check_split_matmul(torch, M, K, N, gen):
         _fail(f"split_matmul {M}x{K}x{N}: max error {err.max().item()} "
               f"beyond {KERNEL_TOL} abs+rel")
     args = [(x, w) for w in ws]
-    ms = _time_ms(torch, sm.split_matmul, args)
+    ms = _graph_ms(torch, sm.split_matmul, args)
+    eager_ms = _time_ms(torch, sm.split_matmul, args)
     plain_ms = _time_ms(torch, ref.split_matmul_ref, args, iters=5)
-    lib_ms = _time_ms(torch, torch.matmul, args)
+    lib_ms = _graph_ms(torch, torch.matmul, args)
     flops = 2.0 * M * N * K
     nbytes = 2.0 * (M * K + K * N + M * N)
     return dict(shape=[M, K, N], max_abs_err=err.max().item(), ms=ms,
+                eager_ms=eager_ms, variant=plan.variant, bn=plan.bn,
+                splits=plan.splits, blocks=plan.blocks,
                 plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BW),
                 bound_by="operations" if flops / PEAK_BF16
@@ -193,14 +259,16 @@ def check_flash(torch, S, gen, KV=8, G=3, hd=128):
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-    ms = _time_ms(torch, kern, [(q, k, v)])
+    ms = _graph_ms(torch, kern, [(q, k, v)])
+    eager_ms = _time_ms(torch, kern, [(q, k, v)])
     plain_ms = _time_ms(torch, plain, [(q, k, v)], iters=5)
-    lib_ms = _time_ms(torch, sdpa, [(qh, kh, vh)])
+    lib_ms = _graph_ms(torch, sdpa, [(qh, kh, vh)])
     H = KV * G
     flops = 4.0 * hd * H * S * (S + 1) / 2      # causal: s+1 keys per row
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
     return dict(shape=[1, S, KV, G, hd], max_abs_err=err.max().item(),
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
                 bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BW),
                 bound_by="operations" if flops / PEAK_BF16
                 > nbytes / PEAK_BW else "bytes")
@@ -251,7 +319,8 @@ def check_ssd(torch, B, S, gen, nh=80, hd=64, ns=128, chunk=256):
     def plain(*a):
         return ref.ssd_scan_ref(*a, chunk=chunk)
 
-    ms = _time_ms(torch, kern, [args])
+    ms = _graph_ms(torch, kern, [args])
+    eager_ms = _time_ms(torch, kern, [args])
     plain_ms = _time_ms(torch, plain, [args], iters=5)
     # the least work of this call: c.b once per (batch, chunk), the rest
     # per head; the masked half of each chunk's square is not counted
@@ -263,7 +332,7 @@ def check_ssd(torch, B, S, gen, nh=80, hd=64, ns=128, chunk=256):
               + 4.0 * (B * S * nh + nh)                     # fp32 dt, a_log
               + 4.0 * (B * S * nh * hd + B * nh * hd * ns))  # fp32 y, state
     return dict(shape=[B, S, nh, hd, ns, chunk], max_abs_err=err,
-                max_scaled_err=scaled, ms=ms,
+                max_scaled_err=scaled, ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, library_ms=None,
                 bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BW),
                 bound_by="operations" if flops / PEAK_BF16
@@ -286,6 +355,10 @@ def check_options(torch, gen) -> int:
             x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
             w = (torch.randn(K, N, generator=gen, device="cuda")
                  / math.sqrt(K)).to(dtype)
+            plan = sm.plan_for(x, w, bk)
+            if plan.variant == "general":
+                print(f"  split_matmul {M}x{K}x{N} {dtype}: general kernel "
+                      f"({plan.reason})")
             y = sm.split_matmul(x, w, bk=bk).float()
             y_ref = ref.split_matmul_ref(x, w).float()
             if not torch.allclose(y, y_ref, atol=tol, rtol=tol):
@@ -310,6 +383,26 @@ def check_options(torch, gen) -> int:
                 _fail(f"flash_attention {dtype} {(B, S, T, KV, G, hd)} {kw}: "
                       f"max error {(o - o_ref).abs().max().item()}")
             n += 1
+    # bf16 cases of the two designs: each must take the design named
+    n += check_matmul_designs(torch, gen)
+    for B, S, T, KV, G, hd, causal, window, q_off in (
+            (1, 333, 333, 8, 3, 64, True, 0, 0),       # hd 64, path size
+            (1, 200, 200, 2, 4, 128, True, 70, 0),     # window over tiles
+            (1, 100, 300, 1, 3, 128, True, 0, 200),    # q_offset, T > S
+            (2, 130, 300, 2, 1, 64, False, 0, 0)):     # non-causal T != S
+        q = torch.randn(B, S, KV, G, hd, generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        k = torch.randn(B, T, KV, hd, generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        v = torch.randn(B, T, KV, hd, generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        kw = dict(causal=causal, window=window, q_offset=q_off)
+        o = fa.flash_attention(q, k, v, **kw).float()
+        o_ref = ref.flash_attention_ref(q, k, v, **kw).float()
+        if not torch.allclose(o, o_ref, atol=KERNEL_TOL, rtol=KERNEL_TOL):
+            _fail(f"flash_attention bf16 {(B, S, T, KV, G, hd)} {kw}: max "
+                  f"error {(o - o_ref).abs().max().item()}")
+        n += 1
     # the scan: f32 inputs, an initial state, S shorter than one chunk,
     # B = 2, and hymba-1.5b's heads (64 of 50, state 16)
     from repro_torch.kernels import ssd_scan as sk
@@ -328,6 +421,49 @@ def check_options(torch, gen) -> int:
                  f"{(B, S, nh, hd, ns, chunk)} {dtype} init={init}")
         n += 1
     return n
+
+
+# (M, K, N, bk, design, what it exercises), all bf16
+MATMUL_DESIGN_CASES = (
+    (1, 1024, 512, 512, "stream", "M = 1"),
+    (16, 2048, 1024, 512, "stream", "M = 16"),
+    (17, 1536, 384, 512, "stream", "M = 17"),
+    (64, 3072, 1024, 512, "stream", "M = 64, the last stream row count"),
+    (65, 3072, 1024, 512, "wgmma", "M = 65, the first wgmma row count"),
+    (8, 3000, 512, 512, "stream", "K not a multiple of splits x bk"),
+    (200, 2600, 256, 512, "wgmma", "K not a multiple of splits x bk"),
+    (8, 2048, 256, 512, "stream", "bk = K/4: a split-4 plan"),
+    (256, 4096, 128, 1024, "wgmma", "bk = K/4: a split-4 plan"),
+    (8, 1000, 336, 40, "stream", "bk not a multiple of 32"),
+    (100, 1000, 336, 100, "wgmma", "bk not a multiple of 8"),
+    (5, 600, 64, 13, "stream", "bk odd"),
+    (300, 4096, 336, 512, "wgmma", "N = 336 against a 128 tile"),
+    (129, 3072, 3000, 512, "wgmma", "ragged M and N against a 192 tile"),
+    (200, 8192, 2000, 512, "wgmma", "ragged N against a 256 tile, split 8"),
+)
+
+
+def check_matmul_designs(torch, gen) -> int:
+    """`split_matmul` off the path in bf16: each case must take the
+    design it names (never the general kernel) and agree with the plain
+    version, with the same K slices, at 2e-2 abs+rel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import split_matmul as sm
+    for M, K, N, bk, design, what in MATMUL_DESIGN_CASES:
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(K, N, generator=gen, device="cuda")
+             / math.sqrt(K)).bfloat16()
+        plan = sm.plan_for(x, w, bk)
+        if plan.variant != design:
+            _fail(f"split_matmul {M}x{K}x{N} bk={bk} ({what}): took "
+                  f"{plan.variant}, not {design}")
+        y = sm.split_matmul(x, w, bk=bk).float()
+        y_ref = ref.split_matmul_ref(x, w, bk=bk).float()
+        if not torch.allclose(y, y_ref, atol=KERNEL_TOL, rtol=KERNEL_TOL):
+            _fail(f"split_matmul {M}x{K}x{N} bk={bk} ({what}, {design}, "
+                  f"{plan.splits} splits): max error "
+                  f"{(y - y_ref).abs().max().item()}")
+    return len(MATMUL_DESIGN_CASES)
 
 
 @contextlib.contextmanager
@@ -371,7 +507,8 @@ def profile_split(torch, fn) -> dict:
         if ev.device_type != DeviceType.CUDA or us <= 0:
             continue
         key = ("split_matmul" if "split_matmul" in ev.key else
-               "flash_attention" if "flash_fwd" in ev.key else
+               "flash_attention" if "flash_bf16" in ev.key
+               or "flash_f32" in ev.key else
                "ssd_scan" if "ssd_scan" in ev.key else "other")
         out[key] += us / 1e3
     busy = sum(out.values())
@@ -557,6 +694,11 @@ def logits_phase(torch, model, params, prompt, cfg) -> dict:
         with plain_versions(**kw), residuals(model, resid[name]):
             runs[name] = model.prefill(params, probe)[0]
     runs["kernel"] = model.prefill(params, probe)[0]
+    again = model.prefill(params, probe)[0]
+    deterministic = torch.equal(again, runs["kernel"])
+    if not deterministic:
+        _fail(f"{cfg.name}: two prefills of one prompt gave different "
+              f"logits")
     lg = {k: t[0, -1, :cfg.vocab_size].float() for k, t in runs.items()}
     a, b = lg["kernel"], lg["plain"]
     if not torch.isfinite(a).all():
@@ -575,13 +717,15 @@ def logits_phase(torch, model, params, prompt, cfg) -> dict:
     out = dict(prompt_len=int(len(prompt)), n_layers=cfg.n_layers,
                max_abs_err=logit_err, reorder_floor=floor,
                max_abs_logit=scale, tol=tol, binding=tol < scale,
+               deterministic=deterministic,
                argmax_equal=bool(a.argmax() == b.argmax()),
                residual_by_layer=by_layer)
     print(f"logits {cfg.name} ({cfg.n_layers} layers): kernel vs plain max "
           f"error {logit_err:.4g}; plain vs plain with its sums reordered "
           f"{floor:.4g}; max |logit| {scale:.4g}; tol {tol:.4g}"
           f"{'' if out['binding'] else ' (not binding: tol >= max |logit|)'}"
-          f"; argmax equal {out['argmax_equal']}")
+          f"; argmax equal {out['argmax_equal']}; a second prefill "
+          f"identical")
     print("  residual by layer (rms, reordered/plain divergence): " +
           ", ".join(f"{r['layer']}: {r['rms']:.4g}, {r['rel_div']:.3g}"
                     for r in by_layer))
@@ -618,8 +762,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _lib.lib()
     report["build_s"] = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _lib.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = _ptxas(_lib.build_log)
     print(f"build: {report['build_s']:.1f} s (nvcc sm_90a, "
           f"{len(list((ROOT / 'src/repro_torch/csrc').glob('*.cu')))} "
           f"sources)")
@@ -665,9 +808,12 @@ def main(argv=None) -> int:
             err = (f"{r['max_abs_err']:.3g}" if "max_scaled_err" not in r
                    else f"{r['max_abs_err']:.3g}, of 1 + |ref| "
                    f"{r['max_scaled_err']:.3g}")
-            print(f"  {name:15s} {str(r['shape']):26s} err {err} (tol "
-                  f"{tol}) kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            design = (f" [{r['variant']} bn {r['bn']} x {r['splits']} "
+                      f"splits, {r['blocks']} blocks]" if "variant" in r
+                      else "")
+            print(f"  {name:15s} {str(r['shape']):26s}{design} err {err} "
+                  f"(tol {tol}) kernel {r['ms']:.4f} ms (eager "
+                  f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
     report["split_matmul"] = {ARCHS[0]: mm, ARCHS[1]: mm_mam}
@@ -675,8 +821,10 @@ def main(argv=None) -> int:
     report["ssd_scan"] = ssd
     n_opt = check_options(torch, gen)
     print(f"  options: {n_opt} cases off the serve paths (f32, ragged, "
-          f"K slices, hd 64, windows, offsets, non-causal, scan init "
-          f"states, hymba's scan shapes) agree with the plain versions")
+          f"each matmul design at M 1..65, K slices and splits, N against "
+          f"a 128 tile, hd 64, G 1 and 4, windows, offsets, non-causal, "
+          f"scan init states, hymba's scan shapes) agree with the plain "
+          f"versions")
     torch.cuda.empty_cache()
 
     # 3-4. serve each model, then its whole-model logits ----------------------
@@ -699,7 +847,9 @@ def main(argv=None) -> int:
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    shape=r["shape"])
+                    shape=r["shape"], eager_ms=r["eager_ms"],
+                    **{k: r[k] for k in ("variant", "bn", "splits")
+                       if k in r})
 
     # representative shapes: the decode head product, the full prompt
     kernels = [entry("split_matmul", mm[-1]),

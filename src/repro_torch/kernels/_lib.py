@@ -48,7 +48,7 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):     # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -100,12 +100,17 @@ def lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.split_matmul_bf16.argtypes = [p, p, p, i, i, i, i, p]
         handle.split_matmul_f32.argtypes = [p, p, p, i, i, i, i, p]
+        for fn in (handle.split_matmul_stream_bf16,
+                   handle.split_matmul_wgmma_bf16):
+            fn.argtypes = [p, p, p, p] + [i] * 7 + [p]
         handle.flash_attention_fwd.argtypes = [
             p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         ll = ctypes.c_longlong
         for fn in (handle.ssd_scan_bf16, handle.ssd_scan_f32):
             fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [p]
         for fn in (handle.split_matmul_bf16, handle.split_matmul_f32,
+                   handle.split_matmul_stream_bf16,
+                   handle.split_matmul_wgmma_bf16,
                    handle.flash_attention_fwd, handle.ssd_scan_bf16,
                    handle.ssd_scan_f32):
             fn.restype = ctypes.c_int

@@ -2,9 +2,10 @@
 
 The wrapper of `csrc/flash_attention.cu`, which replaces the TPU kernel
 `src/repro/kernels/flash_attention.py::flash_attention`, in the model
-layout (no transposes).  CUDA tensors only (the plain version in
-`ref.py` serves the CPU; `ops` dispatches); counts its launches in
-`launches`.
+layout (no transposes): bf16 on the tensor cores (mma.sync, cp.async
+double-buffered K/V tiles), float32 on CUDA cores.  CUDA tensors only
+(the plain version in `ref.py` serves the CPU; `ops` dispatches);
+counts its launches in `launches`.
 """
 from __future__ import annotations
 
@@ -42,6 +43,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {hd}: kernel built for {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous inputs")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention in bf16 copies 16-byte rows: "
+                         "base pointers must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

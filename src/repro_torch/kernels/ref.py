@@ -29,6 +29,24 @@ def split_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     return acc.to(x.dtype)
 
 
+def split_matmul_splitk_ref(x: torch.Tensor, w: torch.Tensor, bk: int,
+                            ranges) -> torch.Tensor:
+    """The summation order of the CUDA kernel's split-K plans: K is cut
+    into `ranges` [(k0, k1), ...] of whole slices of `bk`; within a
+    range the slices add into one fp32 accumulator, then the ranges'
+    fp32 partials are summed in range order and cast to x.dtype."""
+    xf, wf = x.float(), w.float()
+    total = None
+    for k0, k1 in ranges:
+        acc = None
+        for s in range(k0, k1, bk):
+            e = min(s + bk, k1)
+            part = xf[:, s:e] @ wf[s:e]
+            acc = part if acc is None else acc + part
+        total = acc if total is None else total + acc
+    return total.to(x.dtype)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int = 0,
                         q_offset: int = 0, bq: int = 512,
