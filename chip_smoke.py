@@ -21,7 +21,9 @@ the final line is not printed):
    a CUDA graph of 20 calls, and the eager time with the host's launch
    cost); then the kernels' other options (f32, ragged shapes, each
    matmul design at its edge cases, windows, an initial state, hymba-1.5b's
-   SSD shapes...);
+   SSD shapes, the scan's chunk counts and lengths...); for `ssd_scan`
+   also the device time of each of its three passes, a bit-identical
+   repeat of one call, and no register spill in its kernels;
 3. for each of phi4-mini-3.8b and mamba2-2.7b: plan it with
    `search_serve` for the h100-sxm preset, build it at full width with
    random bf16 weights from --seed, and serve --requests greedy requests
@@ -40,9 +42,11 @@ the final line is not printed):
 Tolerances: 2e-2 absolute + relative for `split_matmul` and
 `flash_attention` in bf16 (one bf16 ulp of an O(1) output; the two sides
 accumulate in fp32 in different orders).  `ssd_scan` returns fp32 from
-bf16 inputs and both sides compute in fp32, so they differ only by fp32
-summation order (measured at most 1.1e-4 of 1 + |y| at the path's
-shapes): 1e-3 absolute + relative, 1e-4 with f32 inputs.  For the full
+bf16 inputs: its tensor-core products take each fp32 factor as two bf16
+terms (three for f32 inputs), which its CPU emulation
+(`ref.ssd_scan_split_ref`) puts at about 1e-5 of 1 + |y| against the
+fp32 plain version (1.5e-6 with f32 inputs): 1e-3 absolute + relative,
+1e-4 with f32 inputs.  For the full
 models, where per-layer differences compound over the layers, the noise
 floor is measured: the plain versions against themselves with their
 sums in another order (one fp32 product instead of 512-wide K slices,
@@ -331,13 +335,57 @@ def check_ssd(torch, B, S, gen, nh=80, hd=64, ns=128, chunk=256):
     nbytes = (2.0 * (B * S * nh * hd + 2 * B * S * ns)     # bf16 x, b, c
               + 4.0 * (B * S * nh + nh)                     # fp32 dt, a_log
               + 4.0 * (B * S * nh * hd + B * nh * hd * ns))  # fp32 y, state
+    plan = sk.plan_launch(B, S, nh, hd, ns, chunk)
     return dict(shape=[B, S, nh, hd, ns, chunk], max_abs_err=err,
                 max_scaled_err=scaled, ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, library_ms=None,
+                head_group=plan.head_group, blocks=list(plan.blocks),
+                workspace_bytes=plan.workspace_bytes,
                 bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BW),
                 bound_by="operations" if flops / PEAK_BF16
                 > nbytes / PEAK_BW else "bytes",
                 flops=flops, bytes=nbytes)
+
+
+def check_ssd_design(torch, gen, mam) -> dict:
+    """`ssd_scan` beyond agreement at the path's shapes: no register
+    spill in its kernels, a repeated call bit-identical, and the device
+    time of each of its three passes at (1, 512) (profiler, 20 calls)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ssd_scan as sk
+    nh, hd, ns, chunk = (mam.ssm_n_heads, mam.ssm_head_dim, mam.ssm_state,
+                         mam.ssm_chunk)
+    spills = [ln for ln in _ptxas(_lib.build_log) if "ssd_scan" in ln
+              and any(int(v) for v in re.findall(
+                  r"(\d+) bytes spill (?:stores|loads)", ln))]
+    if spills:
+        _fail(f"ssd_scan kernels spill registers: {spills}")
+    args, _ = _ssd_inputs(torch, gen, 1, 512, nh, hd, ns)
+    first = sk.ssd_scan(*args, chunk=chunk)
+    again = sk.ssd_scan(*args, chunk=chunk)
+    if not all(torch.equal(u, v) for u, v in zip(first, again)):
+        _fail("ssd_scan: two calls on the same inputs differ")
+    sk.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    calls = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sk.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    passes = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and "ssd_scan" in ev.key:
+            name = next((k for k in ("states", "pass", "chunk")
+                         if f"ssd_scan_{k}_kernel" in ev.key), ev.key)
+            passes[name] = (passes.get(name, 0.0)
+                            + ev.self_device_time_total / 1e3 / calls)
+    if sorted(passes) != ["chunk", "pass", "states"]:
+        _fail(f"ssd_scan: profiler saw kernels {sorted(passes)}")
+    return dict(bit_identical=True, pass_ms=passes,
+                kernels_per_call=len(passes))
 
 
 def check_options(torch, gen) -> int:
@@ -404,7 +452,7 @@ def check_options(torch, gen) -> int:
                   f"error {(o - o_ref).abs().max().item()}")
         n += 1
     # the scan: f32 inputs, an initial state, S shorter than one chunk,
-    # B = 2, and hymba-1.5b's heads (64 of 50, state 16)
+    # B = 2, and hymba-1.5b's heads (64 of 50, state 16); then SSD_CASES
     from repro_torch.kernels import ssd_scan as sk
     for B, S, nh, hd, ns, chunk, dtype, init in (
             (2, 77, 8, 32, 16, 32, torch.float32, True),
@@ -412,7 +460,10 @@ def check_options(torch, gen) -> int:
             (2, 300, 80, 64, 128, 256, torch.bfloat16, True),
             (1, 100, 80, 64, 128, 256, torch.bfloat16, False),
             (1, 333, 64, 50, 16, 256, torch.bfloat16, False),
-            (2, 512, 64, 50, 16, 256, torch.float32, True)):
+            (2, 512, 64, 50, 16, 256, torch.float32, True)) + tuple(
+                case[:-1] for case in SSD_CASES):
+        if isinstance(dtype, str):
+            dtype = getattr(torch, dtype)
         args, s0 = _ssd_inputs(torch, gen, B, S, nh, hd, ns, dtype, init)
         got = sk.ssd_scan(*args, chunk=chunk, init_state=s0)
         want = ref.ssd_scan_ref(*args, chunk=chunk, init_state=s0)
@@ -421,6 +472,22 @@ def check_options(torch, gen) -> int:
                  f"{(B, S, nh, hd, ns, chunk)} {dtype} init={init}")
         n += 1
     return n
+
+
+# (B, S, nh, hd, ns, chunk, dtype, init, what it exercises) of `ssd_scan`
+# off the serve path (mamba2's widths unless named); dtype by name
+SSD_CASES = (
+    (2, 1000, 80, 64, 128, 256, "bfloat16", True,
+     "4 chunks, the last ragged (232 rows), an initial state"),
+    (1, 1, 80, 64, 128, 256, "bfloat16", False, "S = 1"),
+    (1, 256, 80, 64, 128, 256, "bfloat16", True, "S = chunk exactly"),
+    (1, 2048, 80, 64, 128, 64, "bfloat16", False,
+     "chunk 64: 32 chunks, a long state pass"),
+    (1, 512, 80, 64, 128, 256, "float32", False, "f32 inputs"),
+    (1, 300, 4, 128, 64, 128, "bfloat16", True, "head dim 128"),
+    (1, 700, 6, 72, 20, 1024, "bfloat16", True,
+     "chunk 1024, head dim 72, state 20"),
+)
 
 
 # (M, K, N, bk, design, what it exercises), all bf16
@@ -810,7 +877,10 @@ def main(argv=None) -> int:
                    f"{r['max_scaled_err']:.3g}")
             design = (f" [{r['variant']} bn {r['bn']} x {r['splits']} "
                       f"splits, {r['blocks']} blocks]" if "variant" in r
-                      else "")
+                      else f" [head group {r['head_group']}, blocks "
+                      f"{'/'.join(map(str, r['blocks']))}, workspace "
+                      f"{r['workspace_bytes'] / 1e6:.2f} MB]"
+                      if "head_group" in r else "")
             print(f"  {name:15s} {str(r['shape']):26s}{design} err {err} "
                   f"(tol {tol}) kernel {r['ms']:.4f} ms (eager "
                   f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
@@ -819,12 +889,18 @@ def main(argv=None) -> int:
     report["split_matmul"] = {ARCHS[0]: mm, ARCHS[1]: mm_mam}
     report["flash_attention"] = fl
     report["ssd_scan"] = ssd
+    ssd_design = check_ssd_design(torch, gen, mam)
+    report["ssd_scan_design"] = ssd_design
+    print(f"  ssd_scan: no spills; a repeated call bit-identical; passes "
+          f"at (1, 512): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in ssd_design["pass_ms"].items()))
     n_opt = check_options(torch, gen)
     print(f"  options: {n_opt} cases off the serve paths (f32, ragged, "
           f"each matmul design at M 1..65, K slices and splits, N against "
           f"a 128 tile, hd 64, G 1 and 4, windows, offsets, non-causal, "
-          f"scan init states, hymba's scan shapes) agree with the plain "
-          f"versions")
+          f"scan init states, hymba's scan shapes, {len(SSD_CASES)} scan "
+          f"cases: " + "; ".join(c[-1] for c in SSD_CASES) + ") agree with "
+          f"the plain versions")
     torch.cuda.empty_cache()
 
     # 3-4. serve each model, then its whole-model logits ----------------------
@@ -854,7 +930,11 @@ def main(argv=None) -> int:
     # representative shapes: the decode head product, the full prompt
     kernels = [entry("split_matmul", mm[-1]),
                entry("flash_attention", fl[-1]),
-               entry("ssd_scan", ssd[1])]
+               dict(entry("ssd_scan", ssd[1]),
+                    kernels_per_call=ssd_design["kernels_per_call"],
+                    pass_ms=ssd_design["pass_ms"],
+                    head_group=ssd[1]["head_group"],
+                    workspace_bytes=ssd[1]["workspace_bytes"])]
     report["seconds"] = time.perf_counter() - t_start
     out_path.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,53 +1,160 @@
-// ssd_scan: the Mamba2 SSD chunk scan (state-space duality) for Hopper.
+// ssd_scan: the Mamba2 SSD chunk scan (state-space duality) for Hopper
+// (sm_90a), in the chunk-parallel form, every product on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py::ssd_scan
 // (`_kernel`), and computes the JAX model path's
 // models/ssm.py::ssd_chunk_scan: fp32 y and the final fp32 state.
 //
 //   dA = dt * (-exp(a_log)),  csum = cumsum of dA within a chunk
-//   y_i  = sum_{j<=i} exp(csum_i - csum_j) (c_i . b_j) dt_j x_j      (intra)
-//        + exp(csum_i) (c_i . S_prev)                                (carried)
-//   S    = S_prev exp(csum_last) + sum_j b_j (x) exp(csum_last - csum_j) dt_j x_j
+//   y_i = sum_{j<=i} exp(csum_i - csum_j) (c_i . b_j) dt_j x_j      (intra)
+//       + exp(csum_i) (c_i . S_prev)                                (carried)
+//   S   = S_prev exp(csum_last) + sum_j b_j (x) exp(csum_last - csum_j) dt_j x_j
 //
 // Layouts: x (B,S,nh,hd) bf16|f32 with batch/sequence strides given (heads
 // and head dim dense), dt (B,S,nh) f32 dense, a_log (nh,) f32, b/c (B,S,ns)
 // like x with their own strides, init (B,nh,hd,ns) f32 or null;
 // y (B,S,nh,hd) f32 dense, fin (B,nh,hd,ns) f32 dense.  Ragged S: the last
-// chunk is shorter; rows past S are zero in shared memory, so they add
-// nothing and leave the state unchanged, as the reference's padding does.
+// chunk is shorter, and with S < chunk the chunk is S.  Rows past the end
+// read dt = 0 and x = b = c = 0, so csum stays flat there (csum_last is the
+// csum of the last real row) and they add nothing, as the reference's
+// padding does.  Every exponent has the form csum_i - csum_j with j <= i,
+// csum_last - csum_j or csum_i, all <= 0; the causal mask is applied before
+// the exp.
 //
-// Design.  The TPU kernel walks a (B, heads, chunks) grid whose chunk axis
-// runs in order and carries the state in VMEM scratch.  CUDA blocks run in
-// no order, so here one block owns one (batch, head) pair and walks the
-// chunks itself, with the (hd, ns) fp32 state resident in shared memory for
-// the whole sequence.  A chunk of b and c in fp32 (2 x 256 x 128 x 4 B) does
-// not fit in shared memory, so each chunk is walked in 64-row sub-tiles:
-// for each row tile I the carried term and then the intra-chunk term over
-// column tiles J <= I (G = mask(exp(csum_i - csum_j)) * C_I B_J^T, then
-// G X_J); after all row tiles the state update over the same column tiles.
-// Every product is an fp32 shared-memory GEMM on CUDA cores with 4x4
-// register micro-tiles and 16-byte loads.
+// Bound on an H100 at the serve path's shapes, (1, 512, 80, 64) with ns 128
+// and chunk 256: about 19 MB must move (bf16 x, b, c; fp32 dt, y and the
+// final state) against about 2 GFLOP, so bytes bound it at about 5.6 us
+// (0.0448 ms at batch 8, 0.0039 ms at (1, 333)).  The workspace (chunk
+// states, c b^T tiles, csum and dt, the carried states) is not counted.
 //
-// Bound on this card: at the serve path's shapes, (1, 512, 80, 64) with
-// ns 128 and chunk 256, the least work is about 19 MB moved (bf16 x, b, c;
-// fp32 dt, y and state) against about 2 GFLOP, so bytes bound it (about
-// 6 us).  This kernel recomputes c.b for each head and runs on CUDA cores
-// in fp32, so it is far from that bound; tensor cores (wgmma), TMA and a
-// split over more than B*nh blocks at batch-1 prefill are later work.
-
+// Passes (three kernels a call; the TPU grid walks the chunks in order with
+// the state in VMEM, here only the small state recurrence is sequential):
+//  1. ssd_scan_states_kernel, grid (nh + CB tiles, chunks, B), 256 threads.
+//     A block (b, chunk, head) gathers the chunk's dt, and one thread adds
+//     dt A row by row: the fp32 cumsum of the plain version on the card,
+//     bit for bit, so exp(csum_i - csum_j) of the two sides agree (a
+//     parallel scan put f32 inputs at 9e-5 of the 1e-4 tolerance).  It
+//     writes csum and dt to the workspace, then S_loc = (x w)^T b with
+//     w_j = exp(csum_last - csum_j) dt_j, an (hd x ns) product over the
+//     chunk's 64-row tiles, three tiles of b and raw x in flight by
+//     cp.async.  The other blocks compute c b^T once for each (b, chunk,
+//     64 x 64 tile pair I >= J), for all heads, into an fp32 workspace
+//     (B, chunks, Qp, Qp).  160 + 20 blocks at (1, 512).
+//  2. ssd_scan_pass_kernel, grid (hd ns / 1024, nh, B): walks the chunks in
+//     order from init (or 0): S_prev[c] = S, S = S exp(csum_last[c]) +
+//     S_loc[c], in fp32, float4 a thread; S_prev is written as the bf16
+//     terms pass 3 multiplies with, and the last S to fin.  640 blocks.
+//  3. ssd_scan_chunk_kernel, grid (row tiles x head groups, chunks, B):
+//     4 warps (16 rows each) per head of a group of hg heads.  The carried
+//     term C_I S_prev^T scaled by exp(csum_i); then for each column tile
+//     J <= I the c b^T tile (read once for the group) becomes
+//     G = mask * exp(csum_i - csum_j) * CB * dt_j in registers, already in
+//     the A-fragment layout, and y += G x_J, while tile J + 1 is copied
+//     by cp.async.  Left of the diagonal the decay is exp(csum_i -
+//     csum_r) exp(csum_r - csum_j), r the tile's last row (both <= 1),
+//     its column half made once per tile and head.  Longest row tiles
+//     first.  hg 2 (320 blocks at (1, 512), two a SM) was the fastest in
+//     a sweep on the card, ahead of hg 1, hg 4 and of two warp groups
+//     walking one head's column tiles.
+//
+// Precision.  The tensor cores take bf16, and rounding the fp32 operands to
+// bf16 once misses the 1e-3 tolerance (4.8e-3 of 1 + |y| at (1, 512, 8,
+// 64), CPU emulation); TF32 once gives 8.3e-4.  So every fp32 factor is
+// folded into one side of its product and that side is cut into bf16
+// terms hi = bf16(v), lo = bf16(v - hi), summed in fp32: x, b and c arrive
+// in bf16 on the model path and are exact, so each product is two mmas
+// (emulated error 1.0e-5: G x, (x w)^T b, C S_prev^T; c b^T is one exact
+// mma).  With f32 inputs every operand is three bf16 terms (24 bits, an
+// f32 exactly) and the term pairs whose indices sum to at most 2 are
+// summed: six mmas a product, emulated error 1.5e-6 at (1, 512, 80, 64)
+// against 1e-4 (two terms a side gave 6e-5).  `ref.ssd_scan_split_ref` is
+// this arithmetic in plain PyTorch.  mma.sync m16n8k16 throughout; bf16
+// input tiles with 16-byte aligned rows are cp.async copies, other layouts
+// (hymba's 50-wide heads) and f32 go through registers.
+//
+// Launch plan: grids, threads, shared memory, workspace layout and head
+// group come from the wrapper (kernels/ssd_scan.py::plan_launch, their one
+// owner); the entry checks them against the kernels' limits and the
+// workspace it is given.  Deterministic: no atomics; every sum runs in a
+// fixed order.  Built with -DSSD_TRACE (tools/ssd_scan_phases.py), thread 0
+// of each block of passes 1 and 3 stamps %globaltimer at its phase
+// boundaries; without it the stamps are empty.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+#ifdef SSD_TRACE
+__device__ unsigned long long g_ssd_trace[2][1 << 18];   // [pass][block][32]
+#define SSD_STAMP(K, P)                                                    \
+  do {                                                                     \
+    if (threadIdx.x == 0) {                                                \
+      const unsigned bl_ =                                                 \
+          blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);  \
+      unsigned long long t_;                                               \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));               \
+      if (bl_ < 8192 && (P) < 32) g_ssd_trace[K][bl_ * 32 + (P)] = t_;     \
+    }                                                                      \
+  } while (0)
+// a stamp after the whole block has reached it
+#define SSD_STAMP_ALL(K, P) \
+  do {                      \
+    __syncthreads();        \
+    SSD_STAMP(K, P);        \
+  } while (0)
+#else
+#define SSD_STAMP(K, P) \
+  do {                  \
+  } while (0)
+#define SSD_STAMP_ALL(K, P) SSD_STAMP(K, P)
+#endif
 
 namespace {
 
-constexpr int NT = 256;       // threads per block
-constexpr int T = 64;         // rows of a sub-tile
-constexpr int TP = T + 4;     // padded row of a transposed tile (16 B aligned)
+using bf16 = __nv_bfloat16;
+using hopper::ldmatrix_x4;
+using hopper::ldmatrix_x4_trans;
+using hopper::mma_bf16;
+
+constexpr int T = 64;          // rows of a tile: chunk rows, state rows
+constexpr int NT1 = 256;       // threads of the states / CB blocks
+constexpr int NT2 = 256;       // threads of the state pass
+constexpr int LDX = 8;         // row padding of bf16 tiles (16 bytes)
+constexpr int LDCB = T + 8;    // row of the fp32 CB tile
 constexpr int MAX_HD = 128;
 constexpr int MAX_NS = 128;
 constexpr int MAX_Q = 1024;
-constexpr int MY = 2;         // y micro-tiles a thread: (T/4)(hd/4) <= 2 NT
-constexpr int MS = 4;         // state micro-tiles a thread: (ns/4)(hd/4) <= 4 NT
+constexpr int MAX_SMEM = 232448;
+constexpr int MAX_GROUP = 2;   // heads a chunk-scan block
+constexpr int STAGES = 3;      // tiles in flight in pass 1
+
+// bf16 terms of an input (x, b, c) and of a derived fp32 factor (x w, G,
+// S_prev), and the highest term-index sum a product keeps
+template <typename Tin>
+struct Prec {
+  static constexpr int NI = 1, ND = 2, ORD = 1;
+  static constexpr bool EXACT = true;     // an input tile is a copy
+};
+template <>
+struct Prec<float> {
+  static constexpr int NI = 3, ND = 3, ORD = 2;
+  static constexpr bool EXACT = false;
+};
+
+// chunk-parallel shapes: Q rows a chunk, nc chunks, Q padded to the tile,
+// head dim and state padded to 16
+struct Dims {
+  int Q, nc, QP, ntq, HDP, NSP;
+  __host__ __device__ Dims(int S, int hd, int ns, int chunk) {
+    Q = chunk < S ? chunk : S;
+    nc = (S + Q - 1) / Q;
+    QP = (Q + T - 1) / T * T;
+    ntq = QP / T;
+    HDP = (hd + 15) / 16 * 16;
+    NSP = (ns + 15) / 16 * 16;
+  }
+};
 
 struct Args {
   const void* x;
@@ -58,301 +165,795 @@ struct Args {
   const float* init;
   float* y;
   float* fin;
-  int B, S, nh, hd, ns, chunk;
+  float* ws_state;   // (B, nc, nh, hd, ns): S_loc
+  float* ws_cb;      // (B, nc, QP, QP): c b^T of each chunk
+  float* ws_cs;      // (B, nc, nh, QP): csum of each chunk, flat past its end
+  float* ws_dt;      // (B, nc, nh, QP): dt of each chunk, 0 past its end
+  bf16* ws_sp;       // (B, nc, nh, ND, hd, NSP): S_prev as ND bf16 terms
+  int B, S, nh, hd, ns, chunk, hg;
   long long x_sb, x_ss, b_sb, b_ss, c_sb, c_ss;
+  int vec_x, vec_b, vec_c, vec_init;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void unpack(const float4 v, float (&o)[4]) {
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
+// (v0, v1) as N packed bf16 pairs: term t holds bf16 of what terms < t
+// left over (v0 in the low half, as the mma fragments want it)
+template <int N>
+__device__ __forceinline__ void split2(float v0, float v1,
+                                       uint32_t (&out)[N]) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    out[t] = *reinterpret_cast<const uint32_t*>(&h);
+    v0 -= __low2float(h);
+    v1 -= __high2float(h);
+  }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// d += sum over term pairs (i, j), i + j <= ORD, of a_i b_j (smallest first)
+template <int NA, int NB, int ORD>
+__device__ __forceinline__ void mma_terms(float (&d)[4],
+                                          const uint32_t (&a)[NA][4],
+                                          const uint32_t (&b)[NB][2]) {
+#pragma unroll
+  for (int i = NA - 1; i >= 0; --i)
+#pragma unroll
+    for (int j = NB - 1; j >= 0; --j)
+      if (i + j <= ORD) mma_bf16(d, a[i], b[j][0], b[j][1]);
 }
 
-__host__ __device__ inline int hd_pad(int hd) { return (hd + 3) & ~3; }
-
-__host__ __device__ inline int q_pad(int chunk, int S) {
-  int q = chunk < S ? chunk : S;
-  return (q + T - 1) / T * T;
+// Rows [0, rows) x columns [0, cols) of a row-major source (element (r, k)
+// at src[r * rs + k]; rows >= nrow and columns >= ncol read as 0), each
+// value times scale[r] when scale is given, cut into N bf16 terms: term t
+// goes to dst + t * plane + r * ld + k.  cols and ld are multiples of 8;
+// `vec` says 16-byte loads are aligned.  All `nthr` threads take part, each
+// issuing the loads of 4 chunks of 8 before it stores any.
+template <typename Src, int N>
+__device__ __forceinline__ void load_planes(bf16* dst, int plane, int ld,
+                                            const Src* src, long long rs,
+                                            int rows, int cols, int nrow,
+                                            int ncol, bool vec,
+                                            const float* scale, int tid,
+                                            int nthr) {
+  constexpr int U = 4;
+  const int c8 = cols / 8, total = rows * c8;
+  for (int e0 = tid; e0 < total; e0 += U * nthr) {
+    float v[U][8];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * nthr;
+      const int r = e / c8, k0 = (e - r * c8) * 8;
+      const bool in = e < total && r < nrow;
+      if (in && vec && k0 + 8 <= ncol) {
+        load8(src + r * rs + k0, v[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          v[u][i] = (in && k0 + i < ncol) ? to_f(src[r * rs + k0 + i]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * nthr;
+      if (e >= total) continue;
+      const int r = e / c8, k0 = (e - r * c8) * 8;
+      if (scale != nullptr) {
+        const float s = scale[r];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[u][i] *= s;
+      }
+      uint32_t pk[4][N];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split2<N>(v[u][2 * i], v[u][2 * i + 1], pk[i]);
+#pragma unroll
+      for (int t = 0; t < N; ++t)
+        *reinterpret_cast<uint4*>(dst + t * plane + r * ld + k0) =
+            make_uint4(pk[0][t], pk[1][t], pk[2][t], pk[3][t]);
+    }
+  }
 }
 
-__host__ inline size_t smem_bytes(int hd, int ns, int chunk, int S) {
-  size_t hdp = hd_pad(hd);
-  return sizeof(float) * ((size_t)ns * hdp + 2 * (size_t)ns * TP +
-                          (size_t)T * hdp + (size_t)T * TP +
-                          2 * (size_t)q_pad(chunk, S));
+// ldmatrix row address of lane `lane` for an A fragment (16 x 16 at
+// (m0, k0)) or a pair of B fragments (k16 x n16 at (k0, n0)):
+//   a_mk: A stored [m][k];  a_km: A stored [k][m] (trans);
+//   b_nk: B stored [n][k];  b_kn: B stored [k][n] (trans).
+__device__ __forceinline__ int a_mk(int lane, int m0, int k0, int ld) {
+  const int mat = lane >> 3, r = lane & 7;
+  return (m0 + r + ((mat & 1) << 3)) * ld + k0 + ((mat & 2) << 2);
+}
+__device__ __forceinline__ int a_km(int lane, int m0, int k0, int ld) {
+  const int mat = lane >> 3, r = lane & 7;
+  return (k0 + r + ((mat & 2) << 2)) * ld + m0 + ((mat & 1) << 3);
+}
+__device__ __forceinline__ int b_nk(int lane, int k0, int n0, int ld) {
+  const int mat = lane >> 3, r = lane & 7;
+  return (n0 + r + ((mat & 2) << 2)) * ld + k0 + ((mat & 1) << 3);
+}
+__device__ __forceinline__ int b_kn(int lane, int k0, int n0, int ld) {
+  const int mat = lane >> 3, r = lane & 7;
+  return (k0 + r + ((mat & 1) << 3)) * ld + n0 + ((mat & 2) << 2);
 }
 
+template <int N>
+__device__ __forceinline__ void ld_a(uint32_t (&f)[N][4], const bf16* base,
+                                     int plane, int off, bool trans) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    if (trans)
+      ldmatrix_x4_trans(f[t], base + t * plane + off);
+    else
+      ldmatrix_x4(f[t], base + t * plane + off);
+  }
+}
+// two B fragments (n8 tiles n0 and n0 + 8) of N terms each
+template <int N>
+__device__ __forceinline__ void ld_b(uint32_t (&f0)[N][2],
+                                     uint32_t (&f1)[N][2], const bf16* base,
+                                     int plane, int off, bool trans) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    uint32_t r[4];
+    if (trans)
+      ldmatrix_x4_trans(r, base + t * plane + off);
+    else
+      ldmatrix_x4(r, base + t * plane + off);
+    f0[t][0] = r[0];
+    f0[t][1] = r[1];
+    f1[t][0] = r[2];
+    f1[t][1] = r[3];
+  }
+}
+
+// cp.async copy of rows [0, rows) x columns [0, cols) of a row-major
+// source (row stride rs) to dst (row stride ld); rows >= nrow and columns
+// >= ncol are zero-filled.  Rows start 16-byte aligned on both sides, cols
+// fills whole 16-byte chunks.  Not waited for here.
+template <typename E>
+__device__ __forceinline__ void copy_async(E* dst, int ld, const E* src,
+                                           long long rs, int rows, int cols,
+                                           int nrow, int ncol, int tid,
+                                           int nthr) {
+  constexpr int V = 16 / sizeof(E);
+  const int cv = cols / V;
+  for (int e = tid; e < rows * cv; e += nthr) {
+    const int r = e / cv, k0 = (e - r * cv) * V;
+    const int left = r < nrow ? ncol - k0 : 0;
+    const int bytes =
+        left <= 0 ? 0 : (left >= V ? 16 : left * (int)sizeof(E));
+    hopper::cp_async16(dst + r * ld + k0,
+                       bytes ? static_cast<const void*>(src + r * rs + k0)
+                             : static_cast<const void*>(src),
+                       bytes);
+  }
+}
+
+// An input tile (x, b or c rows) as the NI bf16 planes the products read:
+// bf16 with 16-byte aligned rows is a copy (cp.async, waited for by the
+// caller); other layouts and f32 inputs go through registers.
 template <typename Tin>
-__global__ void __launch_bounds__(NT) ssd_scan_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int h = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
-  const int hd = a.hd, ns = a.ns, nh = a.nh, S = a.S;
-  const int HDP = hd_pad(hd);
-  const int Q = a.chunk < S ? a.chunk : S;
-  const int PT = HDP / 4;                  // micro-tiles across the head dim
-  float* St = sm;                          // [ns][HDP] state, transposed
-  float* cT = St + ns * HDP;               // [ns][TP]  c rows of tile I
-  float* bT = cT + ns * TP;                // [ns][TP]  b rows of tile J (A)
-                                           // [T][ns]   b rows of tile J (B)
-  float* xs = bT + ns * TP;                // [T][HDP]  x*dt (A), *decay (B)
-  float* GT = xs + T * HDP;                // [T][TP]   G transposed, GT[j][i]
-  float* csum = GT + T * TP;               // [QP]
-  float* dts = csum + q_pad(a.chunk, S);   // [QP]
-
-  const Tin* X = static_cast<const Tin*>(a.x);
-  const Tin* Bm = static_cast<const Tin*>(a.b);
-  const Tin* Cm = static_cast<const Tin*>(a.c);
-  const float A = -expf(a.a_log[h]);
-  const long long xo = bi * a.x_sb + (long long)h * hd;
-  const long long bo = bi * a.b_sb, co = bi * a.c_sb;
-  const float* DT = a.dt + (long long)bi * S * nh + h;
-  const long long so = ((long long)bi * nh + h) * hd * ns;
-
-  for (int e = tid; e < ns * HDP; e += NT) {
-    const int k = e / HDP, p = e % HDP;
-    St[e] = (a.init != nullptr && p < hd) ? a.init[so + (long long)p * ns + k]
-                                          : 0.f;
-  }
-
-  const int ny = (T / 4) * PT;             // y micro-tiles of a row tile
-  const int nsm = (ns / 4) * PT;           // state micro-tiles
-
-  for (int s0 = 0; s0 < S; s0 += Q) {
-    const int n = S - s0 < Q ? S - s0 : Q;
-    const int np = (n + T - 1) / T * T;
-    __syncthreads();
-    // dt and the cumulative log-decay of the chunk (one warp); rows past
-    // the chunk get dt 0, so csum stays flat there
-    if (tid < 32) {
-      float carry = 0.f;
-      for (int q0 = 0; q0 < np; q0 += 32) {
-        const int q = q0 + tid;
-        const float d = q < n ? DT[(long long)(s0 + q) * nh] : 0.f;
-        float v = d * A;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float u = __shfl_up_sync(0xffffffffu, v, o);
-          if (tid >= o) v += u;
-        }
-        v += carry;
-        csum[q] = v;
-        dts[q] = d;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
-    }
-    __syncthreads();
-
-    // ---- phase A: y of each row tile ------------------------------------
-    for (int i0 = 0; i0 < n; i0 += T) {
-      __syncthreads();
-      for (int e = tid; e < T * ns; e += NT) {
-        const int i = e / ns, k = e % ns;
-        cT[k * TP + i] =
-            i0 + i < n ? to_f(Cm[co + (long long)(s0 + i0 + i) * a.c_ss + k])
-                       : 0.f;
-      }
-      __syncthreads();
-
-      float acc[MY][16];
-      // carried term: exp(csum_i) * (c_i . S_prev)
-#pragma unroll
-      for (int m = 0; m < MY; ++m) {
-#pragma unroll
-        for (int r = 0; r < 16; ++r) acc[m][r] = 0.f;
-        const int mt = tid + m * NT;
-        if (mt < ny) {
-          const int ti = mt / PT, tp = mt % PT;
-          for (int k = 0; k < ns; ++k) {
-            float cv[4], sv[4];
-            unpack(ld4(cT + k * TP + 4 * ti), cv);
-            unpack(ld4(St + k * HDP + 4 * tp), sv);
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) acc[m][r * 4 + q] += cv[r] * sv[q];
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float g = expf(csum[i0 + 4 * ti + r]);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[m][r * 4 + q] *= g;
-          }
-        }
-      }
-
-      // intra-chunk term over column tiles J <= I
-      for (int j0 = 0; j0 <= i0; j0 += T) {
-        __syncthreads();
-        for (int e = tid; e < T * ns; e += NT) {
-          const int j = e / ns, k = e % ns;
-          bT[k * TP + j] =
-              j0 + j < n
-                  ? to_f(Bm[bo + (long long)(s0 + j0 + j) * a.b_ss + k])
-                  : 0.f;
-        }
-        for (int e = tid; e < T * HDP; e += NT) {
-          const int j = e / HDP, p = e % HDP;
-          xs[e] = (j0 + j < n && p < hd)
-                      ? to_f(X[xo + (long long)(s0 + j0 + j) * a.x_ss + p]) *
-                            dts[j0 + j]
-                      : 0.f;
-        }
-        __syncthreads();
-        {
-          // G[i][j] = exp(csum_i - csum_j) (c_i . b_j) for j <= i, else 0
-          const int ti = tid / 16, tj = tid % 16;
-          float g[16];
-#pragma unroll
-          for (int r = 0; r < 16; ++r) g[r] = 0.f;
-          for (int k = 0; k < ns; ++k) {
-            float cv[4], bv[4];
-            unpack(ld4(cT + k * TP + 4 * ti), cv);
-            unpack(ld4(bT + k * TP + 4 * tj), bv);
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) g[r * 4 + q] += cv[r] * bv[q];
-          }
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int j = j0 + 4 * tj + q;
-            float out[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const int i = i0 + 4 * ti + r;
-              // mask before exp: masked differences are positive
-              out[r] = j <= i ? expf(csum[i] - csum[j]) * g[r * 4 + q] : 0.f;
-            }
-            *reinterpret_cast<float4*>(GT + (4 * tj + q) * TP + 4 * ti) =
-                make_float4(out[0], out[1], out[2], out[3]);
-          }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int m = 0; m < MY; ++m) {
-          const int mt = tid + m * NT;
-          if (mt < ny) {
-            const int ti = mt / PT, tp = mt % PT;
-            for (int j = 0; j < T; ++j) {
-              float gv[4], xv[4];
-              unpack(ld4(GT + j * TP + 4 * ti), gv);
-              unpack(ld4(xs + j * HDP + 4 * tp), xv);
-#pragma unroll
-              for (int r = 0; r < 4; ++r)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) acc[m][r * 4 + q] += gv[r] * xv[q];
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int m = 0; m < MY; ++m) {
-        const int mt = tid + m * NT;
-        if (mt < ny) {
-          const int ti = mt / PT, tp = mt % PT;
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int i = i0 + 4 * ti + r;
-            if (i >= n) continue;
-            float* yrow = a.y + (((long long)bi * S + s0 + i) * nh + h) * hd;
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              if (4 * tp + q < hd) yrow[4 * tp + q] = acc[m][r * 4 + q];
-          }
-        }
-      }
-    }
-
-    // ---- phase B: state update --------------------------------------------
-    __syncthreads();
-    const float last = csum[n - 1];
-    const float dlast = expf(last);
-    for (int e = tid; e < ns * HDP; e += NT) St[e] *= dlast;
-    for (int j0 = 0; j0 < n; j0 += T) {
-      __syncthreads();
-      for (int e = tid; e < T * ns; e += NT) {
-        const int j = e / ns, k = e % ns;
-        bT[e] = j0 + j < n
-                    ? to_f(Bm[bo + (long long)(s0 + j0 + j) * a.b_ss + k])
-                    : 0.f;
-      }
-      for (int e = tid; e < T * HDP; e += NT) {
-        const int j = e / HDP, p = e % HDP;
-        xs[e] = (j0 + j < n && p < hd)
-                    ? to_f(X[xo + (long long)(s0 + j0 + j) * a.x_ss + p]) *
-                          dts[j0 + j] * expf(last - csum[j0 + j])
-                    : 0.f;
-      }
-      __syncthreads();
-      const int jn = n - j0 < T ? n - j0 : T;
-#pragma unroll
-      for (int m = 0; m < MS; ++m) {
-        const int mt = tid + m * NT;
-        if (mt < nsm) {
-          const int tk = mt / PT, tp = mt % PT;
-          float u[16];
-#pragma unroll
-          for (int r = 0; r < 16; ++r) u[r] = 0.f;
-          for (int j = 0; j < jn; ++j) {
-            float bv[4], xv[4];
-            unpack(ld4(bT + j * ns + 4 * tk), bv);
-            unpack(ld4(xs + j * HDP + 4 * tp), xv);
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) u[r * 4 + q] += bv[r] * xv[q];
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            float4* dst =
-                reinterpret_cast<float4*>(St + (4 * tk + r) * HDP + 4 * tp);
-            float4 v = *dst;
-            v.x += u[r * 4 + 0];
-            v.y += u[r * 4 + 1];
-            v.z += u[r * 4 + 2];
-            v.w += u[r * 4 + 3];
-            *dst = v;
-          }
-        }
-      }
+__device__ __forceinline__ void fill_input(bf16* dst, int plane, int ld,
+                                           const Tin* src, long long rs,
+                                           int rows, int cols, int nrow,
+                                           int ncol, bool vec, int tid,
+                                           int nthr) {
+  if constexpr (Prec<Tin>::EXACT) {
+    if (vec) {
+      copy_async<bf16>(dst, ld, reinterpret_cast<const bf16*>(src), rs, rows,
+                       cols, nrow, ncol, tid, nthr);
+      return;
     }
   }
+  load_planes<Tin, Prec<Tin>::NI>(dst, plane, ld, src, rs, rows, cols, nrow,
+                                  ncol, vec, nullptr, tid, nthr);
+}
 
+// --- pass 1: chunk states and c b^T ----------------------------------------
+
+// CB tile (I, J) of chunk c: C_I B_J^T over the state, 8 warps of 16 rows
+// x 32 columns.
+template <typename Tin>
+__device__ __forceinline__ void cb_tile(const Args& a, const Dims& d,
+                                        int tile, int c, int bi, int n,
+                                        char* smem) {
+  constexpr int NI = Prec<Tin>::NI, ORD = Prec<Tin>::ORD;
+  int I = 0;
+  while ((I + 1) * (I + 2) / 2 <= tile) ++I;
+  const int J = tile - I * (I + 1) / 2;
+  if (I * T >= n) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ld = d.NSP + LDX, plane = T * ld;
+  bf16* cs = reinterpret_cast<bf16*>(smem);
+  bf16* bs = cs + NI * plane;
+  const long long s0 = (long long)c * d.Q;
+  const Tin* C = static_cast<const Tin*>(a.c) + bi * a.c_sb +
+                 (s0 + I * T) * a.c_ss;
+  const Tin* Bm = static_cast<const Tin*>(a.b) + bi * a.b_sb +
+                  (s0 + J * T) * a.b_ss;
+  fill_input<Tin>(cs, plane, ld, C, a.c_ss, T, d.NSP, n - I * T, a.ns,
+                  a.vec_c, tid, NT1);
+  fill_input<Tin>(bs, plane, ld, Bm, a.b_ss, T, d.NSP, n - J * T, a.ns,
+                  a.vec_b, tid, NT1);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
   __syncthreads();
-  for (int e = tid; e < hd * ns; e += NT) {
-    const int p = e / ns, k = e % ns;
-    a.fin[so + e] = St[k * HDP + p];
+  const int r = warp & 3, hc = warp >> 2;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < d.NSP; k0 += 16) {
+    uint32_t af[NI][4];
+    ld_a<NI>(af, cs, plane, a_mk(lane, 16 * r, k0, ld), false);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b0[NI][2], b1[NI][2];
+      ld_b<NI>(b0, b1, bs, plane, b_nk(lane, k0, 32 * hc + 16 * np, ld),
+               false);
+      mma_terms<NI, NI, ORD>(acc[2 * np], af, b0);
+      mma_terms<NI, NI, ORD>(acc[2 * np + 1], af, b1);
+    }
+  }
+  const int g = lane >> 2, q = lane & 3;
+  float* out = a.ws_cb + (((long long)bi * d.nc + c) * d.QP + I * T) * d.QP +
+               J * T;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int col = 32 * hc + 8 * t + 2 * q;
+    const int row = 16 * r + g;
+    *reinterpret_cast<float2*>(out + (long long)row * d.QP + col) =
+        make_float2(acc[t][0], acc[t][1]);
+    *reinterpret_cast<float2*>(out + (long long)(row + 8) * d.QP + col) =
+        make_float2(acc[t][2], acc[t][3]);
   }
 }
 
+// UPW: (16-row x 64-column) units of the state a warp owns, 1 or 2
+template <typename Tin, int UPW>
+__global__ void __launch_bounds__(NT1) ssd_scan_states_kernel(const Args a) {
+  constexpr int NI = Prec<Tin>::NI, ND = Prec<Tin>::ND, ORD = Prec<Tin>::ORD;
+  constexpr bool EX = Prec<Tin>::EXACT;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const int c = blockIdx.y, bi = blockIdx.z;
+  if (c >= d.nc || bi >= a.B) return;
+  const long long s0 = (long long)c * d.Q;
+  const int n = (int)(a.S - s0 < d.Q ? a.S - s0 : d.Q);
+  if ((int)blockIdx.x >= a.nh) {
+    cb_tile<Tin>(a, d, blockIdx.x - a.nh, c, bi, n, smem);
+    return;
+  }
+  const int h = blockIdx.x;
+  SSD_STAMP(0, 0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ldx = d.HDP + LDX, px = T * ldx;
+  const int ldb = d.NSP + LDX, pb = T * ldb;
+  float* cs = reinterpret_cast<float*>(smem);           // [QP]
+  float* wv = cs + d.QP;                                // [QP] dt, then w
+  bf16* xs = reinterpret_cast<bf16*>(wv + d.QP);        // ND x [T][ldx]
+  bf16* bs = xs + ND * px;                        // STAGES x NI x [T][ldb]
+  bf16* xr = bs + STAGES * NI * pb;               // STAGES x [T][ldx] (bf16)
+  const Tin* X = static_cast<const Tin*>(a.x) + bi * a.x_sb + s0 * a.x_ss +
+                 (long long)h * a.hd;
+  const Tin* Bm = static_cast<const Tin*>(a.b) + bi * a.b_sb + s0 * a.b_ss;
+  const float* DT = a.dt + ((long long)bi * a.S + s0) * a.nh + h;
+  const int ntile = (n + T - 1) / T;
+
+  for (int j = tid; j < d.QP; j += NT1)
+    hopper::cp_async4(wv + j, j < n ? DT + (long long)j * a.nh : DT,
+                      j < n ? 4 : 0);
+  hopper::cp_async_commit();
+  // b rows of tile t (and raw x rows, for bf16 inputs) into buffer
+  // t % STAGES; one copy group a call, empty past the last tile
+  auto issue = [&](int t) {
+    const int j0 = t * T, buf = t % STAGES;
+    if (t < ntile) {
+      fill_input<Tin>(bs + buf * NI * pb, pb, ldb, Bm + j0 * a.b_ss, a.b_ss,
+                      T, d.NSP, n - j0, a.ns, a.vec_b, tid, NT1);
+      if constexpr (EX)
+        fill_input<Tin>(xr + buf * px, px, ldx, X + j0 * a.x_ss, a.x_ss, T,
+                        d.HDP, n - j0, a.hd, a.vec_x, tid, NT1);
+    }
+    hopper::cp_async_commit();
+  };
+  for (int t = 0; t < STAGES - 1; ++t) issue(t);
+  hopper::cp_async_wait<STAGES - 1>();      // dt
+  __syncthreads();
+  SSD_STAMP(0, 1);
+  if (tid == 0) {
+    // in sequence, as the reference's cumsum adds: the same csum bit for
+    // bit, so exp(csum_i - csum_j) carries no rounding of its own
+    const float A = -expf(a.a_log[h]);
+    float v = 0.f;
+    for (int j0 = 0; j0 < n; j0 += 16) {
+      float dd[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) dd[u] = wv[j0 + u];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        v = __fadd_rn(v, __fmul_rn(dd[u], A));
+        cs[j0 + u] = v;
+      }
+    }
+  }
+  __syncthreads();
+  const float last = cs[n - 1];
+  const long long hq = (((long long)bi * d.nc + c) * a.nh + h) * d.QP;
+  for (int j = tid; j < d.QP; j += NT1) {
+    const float v = j < n ? cs[j] : last, dj = wv[j];
+    a.ws_cs[hq + j] = v;
+    a.ws_dt[hq + j] = dj;
+    wv[j] = expf(last - v) * dj;
+  }
+  SSD_STAMP_ALL(0, 2);
+
+  // units: 16 state rows (head dim) x 64 state columns
+  const int mslabs = d.HDP / 16;
+  const int units = mslabs * ((d.NSP + 63) / 64);
+  float acc[UPW][8][4] = {};
+  for (int t = 0; t < ntile; ++t) {
+    const int j0 = t * T, buf = t % STAGES;
+    hopper::cp_async_wait<STAGES - 2>();    // tile t is in
+    __syncthreads();           // and every thread is done with tile t - 1
+    SSD_STAMP(0, 3 + 2 * t);
+    issue(t + STAGES - 1);
+    if constexpr (EX) {
+      // x w as two bf16 terms, from the raw tile
+      const bf16* raw = xr + buf * px;
+      const int c8 = d.HDP / 8;
+      for (int e = tid; e < T * c8; e += NT1) {
+        const int r = e / c8, k0 = (e - r * c8) * 8;
+        float v[8];
+        load8(raw + r * ldx + k0, v);
+        const float w = wv[j0 + r];
+        uint32_t pk[4][ND];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split2<ND>(v[2 * i] * w, v[2 * i + 1] * w, pk[i]);
+#pragma unroll
+        for (int u = 0; u < ND; ++u)
+          *reinterpret_cast<uint4*>(xs + u * px + r * ldx + k0) =
+              make_uint4(pk[0][u], pk[1][u], pk[2][u], pk[3][u]);
+      }
+    } else {
+      load_planes<Tin, ND>(xs, px, ldx, X + j0 * a.x_ss, a.x_ss, T, d.HDP,
+                           n - j0, a.hd, a.vec_x, wv + j0, tid, NT1);
+    }
+    __syncthreads();
+    const bf16* bt = bs + buf * NI * pb;
+    SSD_STAMP(0, 4 + 2 * t);
+#pragma unroll
+    for (int ui = 0; ui < UPW; ++ui) {
+      const int u = warp + 8 * ui;
+      if (u >= units) continue;
+      const int ms = u % mslabs, ng = u / mslabs;
+      const int np_n = (d.NSP - 64 * ng < 64 ? d.NSP - 64 * ng : 64) / 16;
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) {
+        uint32_t af[ND][4];
+        ld_a<ND>(af, xs, px, a_km(lane, 16 * ms, 16 * kk, ldx), true);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          if (np >= np_n) continue;
+          uint32_t b0[NI][2], b1[NI][2];
+          ld_b<NI>(b0, b1, bt, pb,
+                   b_kn(lane, 16 * kk, 64 * ng + 16 * np, ldb), true);
+          mma_terms<ND, NI, ORD>(acc[ui][2 * np], af, b0);
+          mma_terms<ND, NI, ORD>(acc[ui][2 * np + 1], af, b1);
+        }
+      }
+    }
+  }
+
+  SSD_STAMP_ALL(0, 20);
+  const int g = lane >> 2, q = lane & 3;
+  float* out = a.ws_state +
+               (((long long)bi * d.nc + c) * a.nh + h) * a.hd * a.ns;
+#pragma unroll
+  for (int ui = 0; ui < UPW; ++ui) {
+    const int u = warp + 8 * ui;
+    if (u >= units) continue;
+    const int ms = u % mslabs, ng = u / mslabs;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int k = 64 * ng + 8 * t + 2 * q;
+      if (k >= a.ns) continue;       // ns % 4 == 0: k + 1 < ns too
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int p = 16 * ms + g + 8 * hr;
+        if (p < a.hd)
+          *reinterpret_cast<float2*>(out + (long long)p * a.ns + k) =
+              make_float2(acc[ui][t][2 * hr], acc[ui][t][2 * hr + 1]);
+      }
+    }
+  }
+}
+
+// --- pass 2: the state recurrence across chunks ----------------------------
+
 template <typename Tin>
-int launch(const Args& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(NT2) ssd_scan_pass_kernel(const Args a) {
+  constexpr int ND = Prec<Tin>::ND;
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int hdns = a.hd * a.ns;
+  const int e = 4 * (blockIdx.x * NT2 + threadIdx.x);
+  if (e >= hdns || h >= a.nh || bi >= a.B) return;
+  const int p = e / a.ns, k = e - p * a.ns;    // ns % 4 == 0: one row
+  const long long head = (long long)bi * a.nh + h;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (a.init != nullptr) {
+    const float* ip = a.init + head * hdns + e;
+    if (a.vec_init) {
+      s = *reinterpret_cast<const float4*>(ip);
+    } else {
+      s = make_float4(ip[0], ip[1], ip[2], ip[3]);
+    }
+  }
+  auto at = [&](int c) { return ((long long)bi * d.nc + c) * a.nh + h; };
+  // chunk c + 1's inputs are loaded before chunk c's planes are stored
+  float4 loc = *reinterpret_cast<const float4*>(a.ws_state + at(0) * hdns + e);
+  float last = a.ws_cs[at(0) * d.QP + d.QP - 1];
+  for (int c = 0; c < d.nc; ++c) {
+    float4 nloc = loc;
+    float nlast = last;
+    if (c + 1 < d.nc) {
+      nloc = *reinterpret_cast<const float4*>(a.ws_state + at(c + 1) * hdns +
+                                              e);
+      nlast = a.ws_cs[at(c + 1) * d.QP + d.QP - 1];
+    }
+    uint32_t lo[ND], hi[ND];
+    split2<ND>(s.x, s.y, lo);
+    split2<ND>(s.z, s.w, hi);
+    bf16* sp = a.ws_sp + (at(c) * ND * a.hd + p) * d.NSP + k;
+#pragma unroll
+    for (int t = 0; t < ND; ++t)
+      *reinterpret_cast<uint2*>(sp + (long long)t * a.hd * d.NSP) =
+          make_uint2(lo[t], hi[t]);
+    const float dec = expf(last);
+    s.x = fmaf(s.x, dec, loc.x);
+    s.y = fmaf(s.y, dec, loc.y);
+    s.z = fmaf(s.z, dec, loc.z);
+    s.w = fmaf(s.w, dec, loc.w);
+    loc = nloc;
+    last = nlast;
+  }
+  *reinterpret_cast<float4*>(a.fin + head * hdns + e) = s;
+}
+
+// --- pass 3: y of each 64-row tile ------------------------------------------
+
+// bytes of one column-tile buffer: a CB tile and the x planes of each head
+template <int HDP>
+__device__ __forceinline__ int chunk_jbuf(int hg, int ni) {
+  return 4 * T * LDCB + 2 * hg * ni * T * (HDP + LDX);
+}
+
+// the serve path's instance (bf16, head tile 64) keeps two blocks an SM
+template <typename Tin, int HDP>
+__global__ void __launch_bounds__(128 * MAX_GROUP,
+                                  Prec<Tin>::EXACT && HDP == 64 ? 2 : 1)
+    ssd_scan_chunk_kernel(const Args a) {
+  constexpr int NI = Prec<Tin>::NI, ND = Prec<Tin>::ND, ORD = Prec<Tin>::ORD;
+  constexpr int NTP = HDP / 8;             // n8 tiles over the head dim
+  extern __shared__ float4 smem4[];
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const int HG = a.hg, groups = (a.nh + HG - 1) / HG;
+  const int I = d.ntq - 1 - (int)blockIdx.x / groups;   // longest first
+  const int hg0 = ((int)blockIdx.x % groups) * HG;
+  const int c = blockIdx.y, bi = blockIdx.z;
+  const long long s0 = (long long)c * d.Q;
+  const int n = (int)(a.S - s0 < d.Q ? a.S - s0 : d.Q);
+  if (c >= d.nc || bi >= a.B || I < 0 || I * T >= n)
+    return;                                // past a ragged chunk's end
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nthr = 128 * HG;
+  const int hw = warp >> 2, r = warp & 3, h = hg0 + hw;
+  const bool live = h < a.nh;
+  const int rows = (I + 1) * T;
+  const bool has_prev = c > 0 || a.init != nullptr;
+  const int nlive = a.nh - hg0 < HG ? a.nh - hg0 : HG;
+  SSD_STAMP(1, 0);
+
+  float* cs = reinterpret_cast<float*>(smem4);          // [HG][QP]
+  float* dv = cs + HG * d.QP;                           // [HG][QP]
+  float* bcol = dv + HG * d.QP;                         // [2][HG][T]
+  const int ldc = d.NSP + LDX, pc = T * ldc;
+  bf16* cpl = reinterpret_cast<bf16*>(bcol + 2 * HG * T);  // NI x [T][ldc]
+  char* U = reinterpret_cast<char*>(cpl + NI * pc);
+  // state phase: ND planes [HDP][ldc] of S_prev for each head
+  bf16* spl = reinterpret_cast<bf16*>(U);
+  const int ps = HDP * ldc;
+  // column-tile phase: 2 buffers of a CB tile [T][LDCB] and NI x [T][ldx]
+  // planes of x for each head
+  const int ldx = HDP + LDX, px = T * ldx;
+  const int jbuf = chunk_jbuf<HDP>(HG, NI);
+
+  const long long hq = (((long long)bi * d.nc + c) * a.nh + hg0) * d.QP;
+  for (int k = 0; k < nlive; ++k) {
+    copy_async<float>(cs + k * d.QP, 0, a.ws_cs + hq + k * d.QP, 0, 1, rows,
+                      1, rows, tid, nthr);
+    copy_async<float>(dv + k * d.QP, 0, a.ws_dt + hq + k * d.QP, 0, 1, rows,
+                      1, rows, tid, nthr);
+  }
+  const Tin* C = static_cast<const Tin*>(a.c) + bi * a.c_sb +
+                 (s0 + I * T) * a.c_ss;
+  fill_input<Tin>(cpl, pc, ldc, C, a.c_ss, T, d.NSP, n - I * T, a.ns,
+                  a.vec_c, tid, nthr);
+  if (has_prev) {
+    const bf16* src = a.ws_sp + (((long long)bi * d.nc + c) * a.nh + hg0) *
+                                    ND * a.hd * d.NSP;
+    for (int k = 0; k < nlive * ND; ++k)
+      copy_async<bf16>(spl + k * ps, ldc, src + (long long)k * a.hd * d.NSP,
+                       d.NSP, HDP, d.NSP, a.hd, a.ns, tid, nthr);
+  }
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  SSD_STAMP(1, 1);
+
+  const int g = lane >> 2, q = lane & 3;
+  const float* csh = cs + hw * d.QP;
+  const float* dvh = dv + hw * d.QP;
+  const int i0 = I * T + 16 * r + g;       // chunk rows i0 and i0 + 8
+  float acc[NTP][4] = {};
+  if (has_prev && live) {
+    // C_I S_prev^T, S_prev in ND bf16 terms
+    const bf16* sh = spl + hw * ND * ps;
+    for (int k0 = 0; k0 < d.NSP; k0 += 16) {
+      uint32_t af[NI][4];
+      ld_a<NI>(af, cpl, pc, a_mk(lane, 16 * r, k0, ldc), false);
+#pragma unroll
+      for (int np = 0; np < NTP / 2; ++np) {
+        uint32_t b0[ND][2], b1[ND][2];
+        ld_b<ND>(b0, b1, sh, ps, b_nk(lane, k0, 16 * np, ldc), false);
+        mma_terms<NI, ND, ORD>(acc[2 * np], af, b0);
+        mma_terms<NI, ND, ORD>(acc[2 * np + 1], af, b1);
+      }
+    }
+    const float e0 = expf(csh[i0]), e1 = expf(csh[i0 + 8]);
+#pragma unroll
+    for (int t = 0; t < NTP; ++t) {
+      acc[t][0] *= e0;
+      acc[t][1] *= e0;
+      acc[t][2] *= e1;
+      acc[t][3] *= e1;
+    }
+  }
+  __syncthreads();                         // U is reused below
+  SSD_STAMP(1, 2);
+
+  const float* cbrow = a.ws_cb +
+                       (((long long)bi * d.nc + c) * d.QP + I * T) * d.QP;
+  const Tin* X = static_cast<const Tin*>(a.x) + bi * a.x_sb + s0 * a.x_ss;
+  auto issue = [&](int J) {
+    float* cbt = reinterpret_cast<float*>(U + (J & 1) * jbuf);
+    bf16* xpl = reinterpret_cast<bf16*>(cbt + T * LDCB);
+    copy_async<float>(cbt, LDCB, cbrow + J * T, d.QP, T, T, T, T, tid, nthr);
+    for (int k = 0; k < nlive; ++k)
+      fill_input<Tin>(xpl + k * NI * px, px, ldx,
+                      X + J * T * a.x_ss + (long long)(hg0 + k) * a.hd,
+                      a.x_ss, T, HDP, n - J * T, a.hd, a.vec_x, tid, nthr);
+    hopper::cp_async_commit();
+  };
+  // Left of the diagonal (J < I) every j < i, and with r the last row of
+  // tile J, exp(csum_i - csum_j) = exp(csum_i - csum_r) exp(csum_r -
+  // csum_j), both factors <= 1: the column factor, times dt_j, is made
+  // once per tile and head into bcol[J & 1]
+  auto columns = [&](int J) {
+    const int rr = J * T + T - 1;
+    for (int e = tid; e < nlive * T; e += nthr) {
+      const int k = e / T, j = J * T + (e - k * T);
+      bcol[((J & 1) * HG + k) * T + (j - J * T)] =
+          __expf(cs[k * d.QP + rr] - cs[k * d.QP + j]) * dv[k * d.QP + j];
+    }
+  };
+  issue(0);
+  if (I > 0) columns(0);
+  for (int J = 0; J <= I; ++J) {
+    hopper::cp_async_wait<0>();            // tile J is in
+    __syncthreads();           // and every thread is done with tile J - 1
+    SSD_STAMP(1, 3 + 2 * J);
+    if (J < I) issue(J + 1);
+    SSD_STAMP(1, 4 + 2 * J);
+    if (J + 1 < I) columns(J + 1);
+    if (live) {
+      const float* cbt = reinterpret_cast<const float*>(U + (J & 1) * jbuf);
+      const bf16* xh = reinterpret_cast<const bf16*>(cbt + T * LDCB) +
+                       hw * NI * px;
+      const float c0 = csh[i0], c1 = csh[i0 + 8];
+      const float* cb0 = cbt + (16 * r + g) * LDCB;
+      const float* cb1 = cb0 + 8 * LDCB;
+      const float* bj = bcol + ((J & 1) * HG + hw) * T;
+      const float cr = csh[J * T + T - 1];
+      const float a0 = J < I ? __expf(c0 - cr) : 0.f;
+      const float a1 = J < I ? __expf(c1 - cr) : 0.f;
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) {
+        // G at rows (i0, i0 + 8) x tile columns jl, jl + 1, jl + 8, jl + 9
+        const int jl = 16 * kk + 2 * q, jg = J * T + jl;
+        float gv[2][4];
+        if (J < I) {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int dj = (cc & 1) + 8 * (cc >> 1);
+            const float b = bj[jl + dj];
+            gv[0][cc] = a0 * (b * cb0[jl + dj]);
+            gv[1][cc] = a1 * (b * cb1[jl + dj]);
+          }
+        } else {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int dj = (cc & 1) + 8 * (cc >> 1);
+            const int j = jg + dj;
+            const float csj = csh[j], dtj = dvh[j];
+            gv[0][cc] =
+                j <= i0 ? __expf(c0 - csj) * cb0[jl + dj] * dtj : 0.f;
+            gv[1][cc] =
+                j <= i0 + 8 ? __expf(c1 - csj) * cb1[jl + dj] * dtj : 0.f;
+          }
+        }
+        uint32_t af[ND][4], t0[ND], t1[ND], t2[ND], t3[ND];
+        split2<ND>(gv[0][0], gv[0][1], t0);
+        split2<ND>(gv[1][0], gv[1][1], t1);
+        split2<ND>(gv[0][2], gv[0][3], t2);
+        split2<ND>(gv[1][2], gv[1][3], t3);
+#pragma unroll
+        for (int t = 0; t < ND; ++t) {
+          af[t][0] = t0[t];
+          af[t][1] = t1[t];
+          af[t][2] = t2[t];
+          af[t][3] = t3[t];
+        }
+#pragma unroll
+        for (int np = 0; np < NTP / 2; ++np) {
+          uint32_t b0[NI][2], b1[NI][2];
+          ld_b<NI>(b0, b1, xh, px, b_kn(lane, 16 * kk, 16 * np, ldx), true);
+          mma_terms<ND, NI, ORD>(acc[2 * np], af, b0);
+          mma_terms<ND, NI, ORD>(acc[2 * np + 1], af, b1);
+        }
+      }
+    }
+  }
+  SSD_STAMP_ALL(1, 30);
+  if (!live) return;
+
+  float* Y = a.y + (((long long)bi * a.S + s0) * a.nh + h) * a.hd;
+  const long long ys = (long long)a.nh * a.hd;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int i = i0 + 8 * hr;
+    if (i >= n) continue;
+    float* yrow = Y + i * ys;
+#pragma unroll
+    for (int t = 0; t < NTP; ++t) {
+      const int p = 8 * t + 2 * q;
+      if (p >= a.hd) continue;
+      if ((a.hd & 1) == 0) {
+        *reinterpret_cast<float2*>(yrow + p) =
+            make_float2(acc[t][2 * hr], acc[t][2 * hr + 1]);
+      } else {
+        yrow[p] = acc[t][2 * hr];
+        if (p + 1 < a.hd) yrow[p + 1] = acc[t][2 * hr + 1];
+      }
+    }
+  }
+}
+
+// --- launch --------------------------------------------------------------------
+
+// The launch plan as kernels/ssd_scan.py::plan_launch gives it (SsdPlan.c_plan):
+// 22 int64 in this order.
+struct Plan {
+  long long grid[3][3];   // (x, y, z) of the states, pass and chunk kernels
+  long long threads[3];
+  long long smem[3];      // dynamic shared memory a block, bytes
+  long long ws[5];        // floats: states, CB, csum, dt, S_prev planes
+  long long hg;           // heads a chunk-scan block
+  long long hd_tile;      // head tile of the chunk scan: 64 or 128
+};
+static_assert(sizeof(Plan) == 22 * sizeof(long long), "plan layout");
+
+// the shape within the kernels' limits, and the plan within the card's and
+// the kernels' limits and the workspace given (it is not recomputed here)
+inline bool valid(const Args& a, const Plan& p, const void* ws,
+                  long long ws_bytes) {
   if (a.B < 1 || a.S < 1 || a.nh < 1 || a.hd < 1 || a.hd > MAX_HD ||
       a.ns < 4 || a.ns > MAX_NS || a.ns % 4 != 0 || a.chunk < 1 ||
-      (a.chunk < a.S ? a.chunk : a.S) > MAX_Q || a.B > 65535 ||
-      (T / 4) * (hd_pad(a.hd) / 4) > MY * NT ||
-      (a.ns / 4) * (hd_pad(a.hd) / 4) > MS * NT)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a.hd, a.ns, a.chunk, a.S);
+      Dims(a.S, a.hd, a.ns, a.chunk).Q > MAX_Q)
+    return false;
+  if (p.hg < 1 || p.hg > MAX_GROUP || p.threads[0] != NT1 ||
+      p.threads[1] != NT2 || p.threads[2] != 128 * p.hg ||
+      (p.hd_tile != 64 && p.hd_tile != 128) || a.hd > p.hd_tile)
+    return false;
+  for (int k = 0; k < 3; ++k) {
+    if (p.smem[k] < 0 || p.smem[k] > MAX_SMEM || p.grid[k][0] < 1 ||
+        p.grid[k][0] > 0x7fffffff)
+      return false;
+    for (int i = 1; i < 3; ++i)
+      if (p.grid[k][i] < 1 || p.grid[k][i] > 65535) return false;
+  }
+  long long need = 0;
+  for (long long f : p.ws) {
+    if (f < 0 || f % 4 != 0) return false;    // regions stay 16-byte aligned
+    need += 4 * f;
+  }
+  return ws != nullptr && (uintptr_t)ws % 16 == 0 && need <= ws_bytes;
+}
+
+inline dim3 grid_of(const Plan& p, int k) {
+  return dim3((unsigned)p.grid[k][0], (unsigned)p.grid[k][1],
+              (unsigned)p.grid[k][2]);
+}
+
+template <typename Tin, int UPW>
+int launch_states(const Args& a, const Plan& p, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      ssd_scan_states_kernel<Tin, UPW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem[0]);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.nh, a.B);
-  ssd_scan_kernel<Tin><<<grid, NT, smem, stream>>>(a);
+  ssd_scan_states_kernel<Tin, UPW>
+      <<<grid_of(p, 0), NT1, (int)p.smem[0], st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename Tin, int HDP>
+int launch_chunk(const Args& a, const Plan& p, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_chunk_kernel<Tin, HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem[2]);
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_chunk_kernel<Tin, HDP>
+      <<<grid_of(p, 2), (int)p.threads[2], (int)p.smem[2], st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename Tin>
+int launch(Args a, const Plan& p, void* ws, long long ws_bytes,
+           cudaStream_t st) {
+  if (!valid(a, p, ws, ws_bytes)) return (int)cudaErrorInvalidValue;
+  a.hg = (int)p.hg;
+  a.ws_state = static_cast<float*>(ws);
+  a.ws_cb = a.ws_state + p.ws[0];
+  a.ws_cs = a.ws_cb + p.ws[1];
+  a.ws_dt = a.ws_cs + p.ws[2];
+  a.ws_sp = reinterpret_cast<bf16*>(a.ws_dt + p.ws[3]);
+  const int E = (int)sizeof(Tin);
+  auto al = [](const void* ptr) { return (uintptr_t)ptr % 16 == 0; };
+  a.vec_x = al(a.x) && (a.x_sb * E) % 16 == 0 && (a.x_ss * E) % 16 == 0 &&
+            (a.hd * E) % 16 == 0;
+  a.vec_b = al(a.b) && (a.b_sb * E) % 16 == 0 && (a.b_ss * E) % 16 == 0;
+  a.vec_c = al(a.c) && (a.c_sb * E) % 16 == 0 && (a.c_ss * E) % 16 == 0;
+  a.vec_init = a.init != nullptr && al(a.init);
+  // state units (16 x 64) of pass 1 over its 8 warps: one or two a warp
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const bool two = (d.HDP / 16) * ((d.NSP + 63) / 64) > 8;
+
+  int rc = two ? launch_states<Tin, 2>(a, p, st)
+               : launch_states<Tin, 1>(a, p, st);
+  if (rc != 0) return rc;
+  ssd_scan_pass_kernel<Tin><<<grid_of(p, 1), NT2, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return p.hd_tile == 64 ? launch_chunk<Tin, 64>(a, p, st)
+                         : launch_chunk<Tin, 128>(a, p, st);
 }
 
 }  // namespace
@@ -363,11 +964,46 @@ int launch(const Args& a, cudaStream_t stream) {
                       float* y, float* fin, int B, int S, int nh, int hd,     \
                       int ns, int chunk, long long x_sb, long long x_ss,      \
                       long long b_sb, long long b_ss, long long c_sb,         \
-                      long long c_ss, void* stream) {                         \
-    const Args a{x,  dt, a_log, b,  c,     init, y,    fin,  B,    S,       \
-                 nh, hd, ns,    chunk, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss};   \
-    return launch<type>(a, static_cast<cudaStream_t>(stream));                \
+                      long long c_ss, const long long* plan, void* ws,        \
+                      long long ws_bytes, void* stream) {                     \
+    if (plan == nullptr) return (int)cudaErrorInvalidValue;                   \
+    Args a{};                                                                 \
+    a.x = x;                                                                  \
+    a.dt = dt;                                                                \
+    a.a_log = a_log;                                                          \
+    a.b = b;                                                                  \
+    a.c = c;                                                                  \
+    a.init = init;                                                            \
+    a.y = y;                                                                  \
+    a.fin = fin;                                                              \
+    a.B = B;                                                                  \
+    a.S = S;                                                                  \
+    a.nh = nh;                                                                \
+    a.hd = hd;                                                                \
+    a.ns = ns;                                                                \
+    a.chunk = chunk;                                                          \
+    a.x_sb = x_sb;                                                            \
+    a.x_ss = x_ss;                                                            \
+    a.b_sb = b_sb;                                                            \
+    a.b_ss = b_ss;                                                            \
+    a.c_sb = c_sb;                                                            \
+    a.c_ss = c_ss;                                                            \
+    return launch<type>(a, *reinterpret_cast<const Plan*>(plan), ws,          \
+                        ws_bytes, static_cast<cudaStream_t>(stream));         \
   }
 
 SSD_ENTRY(ssd_scan_bf16, __nv_bfloat16)
 SSD_ENTRY(ssd_scan_f32, float)
+
+#ifdef SSD_TRACE
+// the stamps of pass k (0: states, 1: chunk scan), 8192 blocks x 32
+extern "C" int ssd_trace_read(void* dst, int k) {
+  return (int)cudaMemcpyFromSymbol(dst, g_ssd_trace,
+                                   sizeof(unsigned long long) << 18,
+                                   k * (sizeof(unsigned long long) << 18));
+}
+extern "C" int ssd_trace_clear() {
+  static unsigned long long zero[2 << 18];
+  return (int)cudaMemcpyToSymbol(g_ssd_trace, zero, sizeof(zero));
+}
+#endif

@@ -107,7 +107,8 @@ def lib() -> ctypes.CDLL:
             p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         ll = ctypes.c_longlong
         for fn in (handle.ssd_scan_bf16, handle.ssd_scan_f32):
-            fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [p]
+            fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [
+                ctypes.POINTER(ll), p, ll, p]
         for fn in (handle.split_matmul_bf16, handle.split_matmul_f32,
                    handle.split_matmul_stream_bf16,
                    handle.split_matmul_wgmma_bf16,

@@ -149,6 +149,111 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y, s
 
 
+def _bf16_terms(v: torch.Tensor, n: int) -> list:
+    """`v` (fp32) as `n` bf16 terms held in fp32: term t is bf16 of what
+    the terms before it left over (n = 3 holds an fp32 value exactly)."""
+    out = []
+    for _ in range(n):
+        t = v.to(torch.bfloat16).float()
+        out.append(t)
+        v = v - t
+    return out
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor, na: int, nb: int,
+              order: int, eq: str) -> torch.Tensor:
+    """einsum(eq, a, b) as the kernel's tensor-core products: each side
+    cut into `na` / `nb` bf16 terms, the products of the term pairs
+    (i, j) with i + j <= order summed in fp32."""
+    ta, tb = _bf16_terms(a, na), _bf16_terms(b, nb)
+    out = None
+    for i, u in enumerate(ta):
+        for j, v in enumerate(tb):
+            if i + j <= order:
+                part = torch.einsum(eq, u, v)
+                out = part if out is None else out + part
+    return out
+
+
+def ssd_decay_matrix(csum: torch.Tensor, cb: torch.Tensor,
+                     dtc: torch.Tensor, tile: int = 64) -> torch.Tensor:
+    """G = mask * exp(csum_i - csum_j) * cb_ij * dt_j of each chunk, as
+    the CUDA kernel forms it over its `tile`-row tiles: in a diagonal
+    tile one exp, (exp * cb) * dt; left of it, with r the last row of
+    j's tile, exp(csum_i - csum_r) * (exp(csum_r - csum_j) * dt_j * cb),
+    two factors <= 1.  csum, dtc (B,nc,Q,nh); cb (B,nc,Q,Q) ->
+    (B,nc,Q,Q,nh)."""
+    Q = csum.shape[2]
+    idx = torch.arange(Q, device=csum.device)
+    ti, tj = idx[:, None] // tile, idx[None, :] // tile
+    left = (ti > tj)[None, None, :, :, None]
+    diag = ((ti == tj) & (idx[:, None] >= idx[None, :]))[None, None, :, :,
+                                                          None]
+    r = torch.clamp(idx // tile * tile + tile - 1, max=Q - 1)
+    cr = csum[:, :, r]                     # csum at the end of j's tile
+    row = torch.exp((csum[:, :, :, None] - cr[:, :, None])
+                    .masked_fill(~left, float("-inf")))
+    col = torch.exp(cr - csum) * dtc
+    g_left = row * (col[:, :, None] * cb[..., None])
+    g_diag = torch.exp((csum[:, :, :, None] - csum[:, :, None])
+                       .masked_fill(~diag, float("-inf"))) \
+        * cb[..., None] * dtc[:, :, None]
+    return g_left + g_diag
+
+
+def ssd_scan_split_ref(x: torch.Tensor, dt: torch.Tensor,
+                       a_log: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, *, chunk: int,
+                       init_state: Optional[torch.Tensor] = None) -> tuple:
+    """The arithmetic of the CUDA kernel's three passes
+    (`csrc/ssd_scan.cu`), with its operand splits: every product runs
+    on bf16 terms with fp32 sums.  With bf16 inputs, x, b and c are one
+    exact term and each fp32 factor (x*w, G, the carried state) two
+    terms, pairs up to index sum 1 (two products); with f32 inputs every
+    operand is three terms, pairs up to index sum 2 (six products).
+    Same contract as `ssd_scan_ref`.
+
+    1. chunk states: S_loc = (x*w)^T b, w_j = exp(csum_last - csum_j) dt_j;
+    2. state passing: S_prev[c] = S, S = S exp(csum_last[c]) + S_loc[c];
+    3. chunk scan: y = (mask * exp(csum_i - csum_j) * (c b^T) * dt_j) x
+       + exp(csum_i) * (c S_prev^T), the decay factored left of the
+       diagonal tiles as the kernel does (`ssd_decay_matrix`)."""
+    B, S, nh, hd = x.shape
+    ns = b.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    ni, nd, order = (1, 2, 1) if x.dtype == torch.bfloat16 else (3, 3, 2)
+    pad_seq = lambda t: torch.nn.functional.pad(
+        t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+    xc = pad_seq(x).reshape(B, nc, Q, nh, hd)
+    bc = pad_seq(b).reshape(B, nc, Q, ns)
+    cc = pad_seq(c).reshape(B, nc, Q, ns)
+    dtc = pad_seq(dt).reshape(B, nc, Q, nh)          # 0 past S
+    csum = torch.cumsum(dtc * -torch.exp(a_log.float()), dim=2)
+    last = csum[:, :, -1]                             # (B,nc,nh)
+
+    # 1. chunk states (B,nc,nh,hd,ns)
+    w = torch.exp(last[:, :, None] - csum) * dtc      # (B,nc,Q,nh)
+    s_loc = _split_mm(xc * w[..., None], bc, nd, ni, order,
+                      "bnjhp,bnjk->bnhpk")
+    # 2. state passing
+    s = (init_state.float() if init_state is not None
+         else torch.zeros(B, nh, hd, ns, device=x.device))
+    prev = []
+    for n in range(nc):
+        prev.append(s)
+        s = s * torch.exp(last[:, n])[..., None, None] + s_loc[:, n]
+    s_prev = torch.stack(prev, dim=1)
+    # 3. chunk scan
+    cb = _split_mm(cc, bc, ni, ni, order, "bnik,bnjk->bnij")
+    g = ssd_decay_matrix(csum, cb, dtc)
+    y = _split_mm(g, xc, nd, ni, order, "bnijh,bnjhp->bnihp")
+    y = y + torch.exp(csum)[..., None] * _split_mm(
+        cc, s_prev, ni, nd, order, "bnik,bnhpk->bnihp")
+    return y.reshape(B, nc * Q, nh, hd)[:, :S], s
+
+
 def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor,
                        a_log: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor,
