@@ -36,8 +36,40 @@ the final line is not printed):
    residual stream's size and its reordering divergence by layer; a
    second prefill of the prompt must give identical logits (split-K
    sums its partials in a fixed order, with no atomics);
-5. print a {"kernels": [...]} line, the card's name and power limit, the
-   serve metrics, and last {"ok": true, "device": {...}}.
+5. the backward kernels at qwen1.5-0.5b's training shapes (B*S =
+   32,768 rows): `split_matmul_dgrad` and `split_matmul_wgrad` at every
+   layer product (q/k/v/o, w13, w2) and at the tied head's CE chunk
+   (8 x 512 rows against the 152,064-row embedding, whose forward takes
+   the "nt" layout, checked too), each against the plain version summed
+   in the plan's split-K order; the `flash_attention` backward at
+   (1, 4096, 16, 1, 64), causal, with the forward's logsumexp; each timed
+   as in phase 2 beside its bound and the library call (`torch.matmul`;
+   the backward of `scaled_dot_product_attention`, eager); then the
+   backward's other options (G 3 at hd 128, window 1024, ragged S and
+   T, an offset, non-causal, f32; both matmul layouts at ragged and odd
+   sizes in bf16 and f32), every repeated backward bit-identical;
+6. train qwen1.5-0.5b at full width and depth: plan it with `osdp` for
+   train_4k at global batch 8 on a 1x1 mesh with 64 GiB and the h100-sxm
+   preset (checkpointing "selective": the search co-decides remat,
+   and picks none when everything fits; a plan that keeps some
+   activations and recomputes others is refused, as selective remat is
+   not ported yet) and print the decisions, remat
+   bits and microbatch; check step 1's loss and every gradient leaf on
+   the first 2 layers of the same weights and batch against the plain
+   versions on the card (binding: within 4x their own reordering noise
+   and at least 2e-2 of a leaf's norm); a repeated forward + backward
+   must be bit-identical; then 5 AdamW steps through `train()` on
+   `data/synthetic.py` batches, launch counters zeroed just before and
+   read just after and held to the counts the plan implies; per step
+   loss, grad norm, host ms (synchronised), tokens/s; MFU from the
+   model FLOPs 6 N tokens + 12 L B S^2 d_attn / 2; peak memory; one more
+   step under the profiler, device ms by bucket (split_matmul forward,
+   dgrad, wgrad, flash forward and backward, AdamW, plain torch); then
+   3 steps of the same model under global remat (the planner's default
+   checkpointing: every layer's forward again in the backward), with
+   their launch counts, step time and peak;
+7. print a {"kernels": [...]} line, the card's name and power limit, the
+   serve and train metrics, and last {"ok": true, "device": {...}}.
 
 Tolerances: 2e-2 absolute + relative for `split_matmul` and
 `flash_attention` in bf16 (one bf16 ulp of an O(1) output; the two sides
@@ -83,11 +115,23 @@ SSD_CHUNK_FLOOR = 64        # the plain scan's other chunk (noise floor)
 SHALLOW = 4                 # layers of the second, shallow logit check
 LOGIT_TOL = 2e-2            # of the largest logit, the least tolerance
 LOGIT_FLOOR_FACTOR = 4      # x the plain version's own reordering noise
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH = 8             # x seq 4096: 32,768 tokens a step
+TRAIN_STEPS = 5
+REMAT_STEPS = 3             # the same steps under global remat
+GRAD_LAYERS = 2             # depth of the binding gradient check
+GRAD_TOL = 2e-2             # of a gradient leaf's norm, the least tolerance
 SOURCES = {
     "split_matmul": ("src/repro_torch/csrc/split_matmul.cu",
                      "src/repro/kernels/split_matmul.py:39"),
+    "split_matmul_dgrad": ("src/repro_torch/csrc/split_matmul.cu",
+                           "src/repro/kernels/split_matmul.py:39"),
+    "split_matmul_wgrad": ("src/repro_torch/csrc/split_matmul.cu",
+                           "src/repro/kernels/split_matmul.py:39"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:80"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:80"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:62"),
 }
@@ -534,22 +578,34 @@ def check_matmul_designs(torch, gen) -> int:
 
 
 @contextlib.contextmanager
-def plain_versions(bk=512, ssd_chunk=None):
-    """Route the model's kernel calls to the plain versions on the card
-    (for the full-model comparison only; the port itself never does).
-    `bk` sets the plain matmul's K slice (None: one fp32 product),
-    `ssd_chunk` the plain scan's chunk (None: the model's)."""
+def plain_versions(bk=512, ssd_chunk=None, bq=512):
+    """Route the model's kernel calls, forward and backward, to the plain
+    versions on the card (for the whole-model comparisons only; the port
+    itself never does).  `bk` sets the plain forward matmul's K slice
+    (None: one fp32 product), `ssd_chunk` the plain scan's chunk (None:
+    the model's), `bq` the plain attention's query block: each an order
+    of summation."""
     from repro_torch.kernels import ops, ref
-    saved = ops.split_matmul, ops.flash_attention, ops.ssd_scan
-    ops.split_matmul = lambda x, w, **_: ref.split_matmul_ref(x, w, bk=bk)
+    names = ("split_matmul", "split_matmul_dgrad", "split_matmul_wgrad",
+             "flash_attention", "flash_attention_bwd", "ssd_scan")
+    saved = [getattr(ops, n) for n in names]
+    ops.split_matmul = lambda x, w, transpose_w=False, **_: \
+        ref.split_matmul_ref(x, w.t() if transpose_w else w, bk=bk)
+    ops.split_matmul_dgrad = lambda dy, w, **kw: \
+        ref.split_matmul_dgrad_ref(dy.contiguous(), w, bk=bk, **kw)
+    ops.split_matmul_wgrad = lambda x, dy, **kw: \
+        ref.split_matmul_wgrad_ref(x, dy.contiguous(), bk=bk, **kw)
     ops.flash_attention = lambda q, k, v, **kw: ref.flash_attention_ref(
-        q, k, v, **kw)
+        q, k, v, bq=bq, **kw)
+    ops.flash_attention_bwd = lambda *a, **kw: ref.flash_attention_bwd_ref(
+        *[t.contiguous() for t in a], bq=bq, **kw)
     ops.ssd_scan = lambda *a, chunk, init_state=None: ref.ssd_scan_ref(
         *a, chunk=ssd_chunk or chunk, init_state=init_state)
     try:
         yield
     finally:
-        ops.split_matmul, ops.flash_attention, ops.ssd_scan = saved
+        for n, fn in zip(names, saved):
+            setattr(ops, n, fn)
 
 
 def profile_split(torch, fn) -> dict:
@@ -802,6 +858,535 @@ def logits_phase(torch, model, params, prompt, cfg) -> dict:
     return out
 
 
+
+# --- phase 5: the backward kernels against their plain versions -------------
+
+def _grad_err(torch, got, want, what, tol=KERNEL_TOL):
+    """max |got - want|; fails beyond tol of the largest entry plus tol
+    relative (bf16 outputs: one ulp of the largest entry and more)."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        _fail(f"{what}: non-finite output")
+    err = (g - w).abs()
+    top = w.abs().max().item()
+    if (err > tol * top + tol * w.abs()).any():
+        _fail(f"{what}: max error {err.max().item():.4g} beyond {tol} of "
+              f"the largest entry {top:.4g} plus {tol} relative")
+    return err.max().item()
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BW
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def check_matmul_grad(torch, role, M, K, N, gen, transpose_w=False):
+    """dgrad (dx = dy w^T) or wgrad (dw = x^T dy) of y = x @ w at
+    x (M, K), w (K, N) ((N, K) with transpose_w), on the card against
+    the plain version summed in the plan's split-K order."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import split_matmul as sm
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device="cuda")
+                               * scale).bfloat16()
+    w = r(*((N, K) if transpose_w else (K, N)), scale=K ** -0.5)
+    if role == "forward":          # the tied head's x @ emb^T ("nt")
+        x = r(M, K)
+        plan = sm.plan_for(x, w, 512, "nt")
+        got = sm.split_matmul(x, w, transpose_w=True)
+        want = ref.split_matmul_splitk_ref(x, w.t(), plan.kslice,
+                                           plan.k_ranges(K))
+        kern = lambda: sm.split_matmul(x, w, transpose_w=True)
+        plain = lambda: ref.split_matmul_ref(x, w.t())
+        lib = lambda: torch.matmul(x, w.t())
+        shape, out_elems = [M, K, N], M * N
+        in_bytes = 2.0 * (M * K + K * N)
+    elif role == "dgrad":
+        dy = r(M, N)
+        layout = "nn" if transpose_w else "nt"
+        plan = sm.plan_for(dy, w, sm.BWD_KSLICE, layout)
+        got = sm.split_matmul_dgrad(dy, w, transpose_w=transpose_w)
+        b = w if transpose_w else w.t()
+        want = ref.split_matmul_splitk_ref(dy, b, plan.kslice,
+                                           plan.k_ranges(N))
+        kern = lambda: sm.split_matmul_dgrad(dy, w, transpose_w=transpose_w)
+        plain = lambda: ref.split_matmul_dgrad_ref(dy, w,
+                                                   transpose_w=transpose_w)
+        lib = lambda: torch.matmul(dy, b)
+        shape, out_elems = [M, N, K], M * K
+        in_bytes = 2.0 * (M * N + K * N)
+    else:
+        x, dy = r(M, K), r(M, N, scale=M ** -0.5)
+        a, b = (dy, x) if transpose_w else (x, dy)
+        plan = sm.plan_for(a, b, sm.BWD_KSLICE, "tn")
+        got = sm.split_matmul_wgrad(x, dy, transpose_w=transpose_w)
+        want = ref.split_matmul_splitk_ref(a.t(), b, plan.kslice,
+                                           plan.k_ranges(M))
+        kern = lambda: sm.split_matmul_wgrad(x, dy, transpose_w=transpose_w)
+        plain = lambda: ref.split_matmul_wgrad_ref(x, dy,
+                                                   transpose_w=transpose_w)
+        lib = lambda: torch.matmul(a.t(), b)
+        shape, out_elems = [M, K, N], K * N
+        in_bytes = 2.0 * (M * K + M * N)
+    torch.cuda.synchronize()
+    if plan.variant == "general":
+        _fail(f"split_matmul {role} {shape}: a path shape took the general "
+              f"kernel ({plan.reason})")
+    err = _grad_err(torch, got, want, f"split_matmul {role} {shape}")
+    if not torch.equal(got, kern()):
+        _fail(f"split_matmul {role} {shape}: two calls on the same inputs "
+              f"differ")
+    flops = 2.0 * M * N * K
+    bound_ms, bound_by = _bound(flops, in_bytes + 2.0 * out_elems)
+    return dict(shape=shape, transpose_w=transpose_w, max_abs_err=err,
+                ms=_graph_ms(torch, lambda: kern(), [()]),
+                eager_ms=_time_ms(torch, lambda: kern(), [()]),
+                plain_ms=_time_ms(torch, lambda: plain(), [()], iters=3),
+                library_ms=_graph_ms(torch, lambda: lib(), [()]),
+                variant=plan.variant, bn=plan.bn, splits=plan.splits,
+                blocks=plan.blocks, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _flash_bwd_inputs(torch, gen, B, S, T, KV, G, hd, dtype, kw):
+    from repro_torch.kernels import flash_attention as fa
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    q, k, v = r(B, S, KV, G, hd), r(B, T, KV, hd), r(B, T, KV, hd)
+    do = r(B, S, KV, G, hd)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    return q, k, v, o, lse, do
+
+
+def _flash_bwd_case(torch, gen, B, S, T, KV, G, hd, kw, dtype, tol):
+    """(kernel grads, plain grads, inputs) of one backward case; fails on
+    a disagreement, a lse off the plain one or a repeat that differs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    args = _flash_bwd_inputs(torch, gen, B, S, T, KV, G, hd, dtype, kw)
+    q, k, v, o, lse, do = args
+    _, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    what = f"flash_attention_bwd {(B, S, T, KV, G, hd)} {kw} {dtype}"
+    if (lse - lse_ref).abs().max().item() > 1e-3:
+        _fail(f"{what}: forward logsumexp off the plain one")
+    got = fa.flash_attention_bwd(*args, **kw)
+    again = fa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        _fail(f"{what}: two backward calls on the same inputs differ")
+    want = ref.flash_attention_bwd_ref(*args, **kw)
+    err = max(_grad_err(torch, g, w, f"{what} d{n}", tol)
+              for n, g, w in zip("qkv", got, want))
+    return err, args
+
+
+def check_flash_bwd(torch, gen, B=1, S=4096, KV=16, G=1, hd=64):
+    """The backward at the training shape of one sequence, causal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    kw = dict(causal=True)
+    err, args = _flash_bwd_case(torch, gen, B, S, S, KV, G, hd, kw,
+                                torch.bfloat16, KERNEL_TOL)
+    q, k, v, o, lse, do = args
+    H = KV * G
+    qh = q.reshape(B, S, H, hd).transpose(1, 2).detach().requires_grad_()
+    kh = k.repeat_interleave(G, 2).transpose(1, 2).detach().requires_grad_()
+    vh = v.repeat_interleave(G, 2).transpose(1, 2).detach().requires_grad_()
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    doh = do.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    # the library yardstick: the backward of SDPA alone, eager
+    lib = lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                      retain_graph=True)
+    pairs = B * H * S * (S + 1) / 2            # causal (query, key) pairs
+    flops = 10.0 * hd * pairs                  # q.k, dO.v, P^T dO, dS k, dS^T q
+    nbytes = (2.0 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
+              + 4.0 * lse.numel())             # q o dO dq, k v dk dv, lse
+    bound_ms, bound_by = _bound(flops, nbytes)
+    return dict(shape=[B, S, KV, G, hd], max_abs_err=err,
+                ms=_graph_ms(torch, lambda: fa.flash_attention_bwd(
+                    *args, **kw), [()]),
+                eager_ms=_time_ms(torch, lambda: fa.flash_attention_bwd(
+                    *args, **kw), [()]),
+                plain_ms=_time_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                    *args, **kw), [()], iters=2),
+                library_ms=_time_ms(torch, lib, [()]),
+                fwd_lse_ms=_graph_ms(torch, lambda: fa.flash_attention(
+                    *args[:3], return_lse=True, **kw), [()]),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# off the training path: the backward's other options and edges
+FLASH_BWD_CASES = (
+    # (B, S, T, KV, G, hd, causal, window, q_offset, dtype, what)
+    (1, 512, 512, 8, 3, 128, True, 0, 0, "bfloat16", "G 3, hd 128 (phi4)"),
+    (1, 1500, 1500, 2, 2, 64, True, 1024, 0, "bfloat16",
+     "window 1024 (hymba)"),
+    (2, 333, 333, 2, 1, 64, True, 0, 0, "bfloat16", "ragged S and T"),
+    (1, 100, 300, 1, 3, 128, True, 0, 200, "bfloat16", "T > S, an offset"),
+    (2, 130, 300, 2, 1, 64, False, 0, 0, "bfloat16", "non-causal, T != S"),
+    (1, 45, 45, 2, 1, 64, True, 17, 0, "float32", "f32, a window"),
+    (2, 37, 50, 2, 3, 128, False, 0, 0, "float32", "f32, non-causal"),
+)
+MATMUL_GRAD_CASES = (
+    # (role, M, K, N, transpose_w, what)
+    ("dgrad", 300, 136, 200, False, "ragged M, K 136, N 200"),
+    ("wgrad", 300, 136, 200, False, "ragged M (the contracted rows)"),
+    ("dgrad", 8, 1024, 1024, False, "M 8: 128-row tiles at 8 rows"),
+    ("dgrad", 5, 37, 19, False, "odd sizes: the strided kernel"),
+    ("wgrad", 5, 37, 19, False, "odd sizes: the strided kernel"),
+    ("dgrad", 200, 64, 264, True, "a transposed weight"),
+    ("wgrad", 200, 64, 264, True, "a transposed weight"),
+)
+
+
+def check_backward_options(torch, gen) -> int:
+    """The backward kernels off the training path, each against its plain
+    version: flash G/hd/window/offset/non-causal/f32, matmul layouts at
+    ragged and odd sizes (bf16) and in f32."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import split_matmul as sm
+    for B, S, T, KV, G, hd, causal, window, q_off, dt, _ in FLASH_BWD_CASES:
+        dtype = getattr(torch, dt)
+        _flash_bwd_case(torch, gen, B, S, T, KV, G, hd,
+                        dict(causal=causal, window=window, q_offset=q_off),
+                        dtype, KERNEL_TOL if dt == "bfloat16" else 1e-4)
+    for role, M, K, N, tw, what in MATMUL_GRAD_CASES:
+        for dtype, tol in ((torch.bfloat16, KERNEL_TOL), (torch.float32,
+                                                          1e-4)):
+            r = lambda *s: torch.randn(*s, generator=gen,
+                                       device="cuda").to(dtype)
+            w = r(*((N, K) if tw else (K, N)))
+            if role == "dgrad":
+                dy = r(M, N)
+                got = sm.split_matmul_dgrad(dy, w, transpose_w=tw)
+                want = ref.split_matmul_dgrad_ref(dy, w, transpose_w=tw)
+            else:
+                x, dy = r(M, K), r(M, N)
+                got = sm.split_matmul_wgrad(x, dy, transpose_w=tw)
+                want = ref.split_matmul_wgrad_ref(x, dy, transpose_w=tw)
+            _grad_err(torch, got, want, f"split_matmul_{role} {what} "
+                      f"{dtype}", tol)
+    return len(FLASH_BWD_CASES) + 2 * len(MATMUL_GRAD_CASES)
+
+
+# --- phase 6: train qwen1.5-0.5b --------------------------------------------
+
+@contextlib.contextmanager
+def annotated_kernels():
+    """Name each kernel wrapper's calls with a profiler range, so a
+    profiled step's device time splits by role: the head's dgrad runs
+    the forward's layout, so kernel names alone cannot tell it from a
+    forward product."""
+    from torch.profiler import record_function
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import split_matmul as sm
+    saved = []
+
+    def wrap(mod, attr, name):
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def inner(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        setattr(mod, attr, inner)
+    for mod, attr, name in ((sm, "split_matmul", "bucket:split_matmul"),
+                            (sm, "split_matmul_dgrad",
+                             "bucket:split_matmul_dgrad"),
+                            (sm, "split_matmul_wgrad",
+                             "bucket:split_matmul_wgrad"),
+                            (fa, "flash_attention", "bucket:flash_attention"),
+                            (fa, "flash_attention_bwd",
+                             "bucket:flash_attention_bwd")):
+        wrap(mod, attr, name)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _profiled(torch, fn):
+    """(device ms of the kernels, device ms of each `bucket:` range, host
+    ms, the 10 torch ops with the most device time) of one call of `fn`.  A range
+    shows on the device as an annotation span from its first kernel to
+    its last: for a kernel wrapper (one to three kernels back to back)
+    that is their device time; the spans are not counted as kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        with annotated_kernels():
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    kernels, spans, others = 0.0, {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            # the torch ops' own kernels (the port's ctypes launches have
+            # no op of their own)
+            if ev.key.startswith("aten::") and ev.self_device_time_total:
+                others.append((ev.self_device_time_total / 1e3, ev.key,
+                               ev.count))
+            continue
+        if ev.key.startswith("bucket:"):
+            spans[ev.key[7:]] = (spans.get(ev.key[7:], 0.0) + max(
+                ev.device_time_total, ev.self_device_time_total) / 1e3)
+        elif ev.self_device_time_total > 0:
+            kernels += ev.self_device_time_total / 1e3
+    return kernels, spans, wall_ms, sorted(others, reverse=True)[:10]
+
+
+def profile_step(torch, grads_fn, update_fn) -> dict:
+    """Device ms of one training step by bucket: the kernels by role
+    (from their wrappers' ranges), plain torch (every other kernel of
+    the forward and backward), and the AdamW update (all the kernels of
+    `update_fn`, profiled on its own)."""
+    k1, spans, w1, others = _profiled(torch, grads_fn)
+    k2, _, w2, _ = _profiled(torch, update_fn)
+    roles = ("split_matmul", "split_matmul_dgrad", "split_matmul_wgrad",
+             "flash_attention", "flash_attention_bwd")
+    if not k1 or not all(spans.get(r, 0.0) > 0 for r in roles):
+        _fail(f"profiler: no device time for some kernel role: {spans}")
+    out = {r: spans[r] for r in roles}
+    out["plain_torch"] = k1 - sum(out.values())
+    out["adamw"] = k2
+    out["device_total"] = k1 + k2
+    out["wall_ms"] = w1 + w2
+    out["device_busy_share"] = (k1 + k2) / (w1 + w2)
+    out["top_plain_ops"] = [dict(ms=ms, name=n, count=cnt)
+                            for ms, n, cnt in others]
+    return out
+
+
+def grad_check(torch, model, params, batch, n_layers) -> dict:
+    """Step-1 loss and every gradient leaf of the first `n_layers` of the
+    model (same weights, same batch) through the kernels against the
+    plain versions on the card, within 4x the plain versions' own
+    reordering noise (their sums in another order: one fp32 product per
+    forward matmul, 256-row attention blocks), and at least GRAD_TOL of
+    a leaf's norm (the kernels round P and dS to bf16 as tensor-core
+    operands where the plain versions keep fp32, and every leaf is bf16:
+    one ulp is 2^-8 = 0.4 percent) or 1e-3 of the loss; a leaf's check
+    binds when its tolerance is below the leaf's own norm."""
+    from repro_torch.train.loop import loss_and_grads
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    cut = dataclasses.replace(model, cfg=cfg)
+    p = {k: (v[:n_layers] if k.startswith("layers/") else v).detach().clone()
+         for k, v in params.items()}
+    runs = {}
+    for name, ctx in (("plain", plain_versions()),
+                      ("reordered", plain_versions(bk=None, bq=256)),
+                      ("kernel", contextlib.nullcontext())):
+        with ctx:
+            loss, _, grads = loss_and_grads(cut, p, batch)
+        runs[name] = (float(loss), {k: g.float() for k, g in grads.items()})
+        del grads
+    lp, gp = runs["plain"]
+    lk, gk = runs["kernel"]
+    lr_, gr = runs["reordered"]
+    loss_tol = max(LOGIT_FLOOR_FACTOR * abs(lr_ - lp), 1e-3 * abs(lp))
+    if not math.isfinite(lk) or abs(lk - lp) > loss_tol:
+        _fail(f"train grad check: loss {lk} vs plain {lp} (tol {loss_tol})")
+    leaves, binding = {}, 0
+    for k in gp:
+        norm = gp[k].norm().item()
+        rel = (gk[k] - gp[k]).norm().item() / max(norm, 1e-30)
+        floor = (gr[k] - gp[k]).norm().item() / max(norm, 1e-30)
+        tol = max(LOGIT_FLOOR_FACTOR * floor, GRAD_TOL)
+        if not torch.isfinite(gk[k]).all() or rel > tol:
+            _fail(f"train grad check: {k} off the plain versions by "
+                  f"{rel:.4g} of its norm (tol {tol:.4g}, floor {floor:.4g})")
+        binding += tol < 1.0
+        leaves[k] = dict(rel_err=rel, floor=floor, tol=tol)
+    if not binding:
+        _fail("train grad check: no leaf's tolerance is below its norm")
+    worst = max(leaves.items(), key=lambda kv: kv[1]["rel_err"] / kv[1]["tol"])
+    print(f"grad check ({n_layers} layers): loss kernel {lk:.6f} plain "
+          f"{lp:.6f} reordered {lr_:.6f} (tol {loss_tol:.3g}); "
+          f"{len(leaves)} leaves, {binding} binding; worst {worst[0]}: "
+          f"{worst[1]['rel_err']:.4g} of its norm (floor "
+          f"{worst[1]['floor']:.4g}, tol {worst[1]['tol']:.4g})")
+    return dict(n_layers=n_layers, loss=dict(kernel=lk, plain=lp,
+                                              reordered=lr_, tol=loss_tol),
+                leaves=leaves, binding_leaves=binding)
+
+
+def _want_train_launches(built, steps, S) -> tuple:
+    """The launches `steps` training steps imply from the plan, by kernel
+    and, for `split_matmul`, by operand layout: each weight segment one
+    forward product (twice a layer under full remat), one dgrad and one
+    wgrad; the head one product a CE chunk and, chunked, its recompute;
+    attention one forward (twice under remat) and one backward a layer;
+    all of it once a microbatch.  A tied head's forward reads the
+    embedding as stored ("nt", as the layers' dgrad) and its dgrad is
+    "nn" (as the layers' forward); every wgrad is "tn".  Layouts are
+    returned for the tied head only (None otherwise)."""
+    from repro_torch.models import transformer as tm
+    model, cfg = built.model, built.model.cfg
+    lay = model.pset.layouts
+    per_layer = sum(len(lay[p].segments) for p in (
+        "layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
+        "layers/attn/wo", "layers/ffn/w13", "layers/ffn/w2"))
+    head_segs = 1 if cfg.tie_embeddings else len(lay["head/out"].segments)
+    chunked = (S % tm.CE_CHUNK == 0 and S > tm.CE_CHUNK
+               and S * cfg.padded_vocab >= tm.CE_MIN_ELEMS)
+    n = steps * max(1, built.run.microbatch)
+    head = n * head_segs * (S // tm.CE_CHUNK if chunked else 1)
+    fwd_layers = 2 if model.remat is True else 1
+    layer_fwd = n * fwd_layers * cfg.n_layers * per_layer
+    layer_bwd = n * cfg.n_layers * per_layer
+    head_fwd = head * (2 if chunked else 1)
+    want = {"split_matmul": layer_fwd + head_fwd,
+            "split_matmul_dgrad": layer_bwd + head,
+            "split_matmul_wgrad": layer_bwd + head,
+            "flash_attention": n * fwd_layers * cfg.n_layers,
+            "flash_attention_bwd": n * cfg.n_layers,
+            "ssd_scan": 0}
+    layouts = ({"nn": layer_fwd + head, "nt": layer_bwd + head_fwd,
+                "tn": layer_bwd + head} if cfg.tie_embeddings else None)
+    return want, layouts
+
+
+def train_phase(torch, args) -> dict:
+    """Plan qwen1.5-0.5b's training step with OSDP for one H100, build it
+    at full width (depth cut by --layers), check its gradients against
+    the plain versions on a shallow cut and a repeated step for
+    bit-identity, then train TRAIN_STEPS steps through `train()` with the
+    launch counts zeroed just before and read just after, and profile
+    one more step."""
+    from repro_torch.configs import (DeviceInfo, MeshConfig, RunConfig,
+                                     get_arch, get_shape)
+    from repro_torch.core.api import osdp
+    from repro_torch.data.synthetic import Dataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig, apply_update, init_state
+    from repro_torch.train.loop import loss_and_grads, train
+
+    cfg_full = get_arch(TRAIN_ARCH)
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=TRAIN_BATCH)
+    mesh = MeshConfig((1, 1), ("data", "model"))
+    plan = osdp(cfg_full, shape, mesh, memory_limit_gib=64.0,
+                device=DeviceInfo.preset("h100-sxm"),
+                checkpointing="selective")
+    print(plan.summary())
+    for op, dec in plan.decisions.items():
+        print(f"  {op}: modes {dec.modes} remat {dec.remat}")
+    cfg = cfg_full
+    if args.layers and args.layers < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        print(f"depth cut: {cfg.n_layers} of {cfg_full.n_layers} layers")
+    run = RunConfig(model=cfg, shape=shape, mesh=mesh, osdp=plan.run.osdp)
+    built = build_model(run, plan)
+    model = built.model
+    B, S = shape.global_batch, shape.seq_len
+    print(f"train {TRAIN_ARCH}: remat {model.remat}, microbatch "
+          f"{run.microbatch}, batch {B} x seq {S}")
+    params = built.init(args.seed, "cuda")
+    n_params = sum(p.numel() for p in params.values())
+    ds = Dataset(cfg, shape, seed=args.seed)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in ds.global_batch(0).items()}
+
+    check = grad_check(torch, model, params, batch,
+                       min(GRAD_LAYERS, cfg.n_layers))
+    torch.cuda.empty_cache()
+    # a repeated forward + backward of one batch is bit-identical
+    runs = [loss_and_grads(model, params, batch) for _ in range(2)]
+    if not (torch.equal(runs[0][0], runs[1][0]) and all(
+            torch.equal(runs[0][2][k], runs[1][2][k]) for k in params)):
+        _fail("train: two forward + backward passes of one batch differ")
+    del runs
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = train(built, TRAIN_STEPS, seed=args.seed, warmup=1, device="cuda",
+                params=params, log_every=1)
+    counts = ops.launch_counts()
+    layouts = ops.split_matmul_layout_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in res.losses):
+        _fail(f"train: non-finite loss {res.losses}")
+    want, want_layouts = _want_train_launches(built, TRAIN_STEPS, S)
+    for name, n in want.items():
+        if counts[name] != n:
+            _fail(f"train: {name} ran {counts[name]} times, the plan's step "
+                  f"needs {n}")
+    if want_layouts and layouts != want_layouts:
+        _fail(f"train: split_matmul launches by layout {layouts}, the "
+              f"layers and the tied head (read as stored, no transposed "
+              f"copy) need {want_layouts}")
+    tokens = B * S
+    flops = (6.0 * n_params * tokens + 12.0 * cfg.n_layers * B * S * S
+             * cfg.n_heads * cfg.resolved_head_dim / 2)
+    steady = sorted(res.step_ms[1:]) or res.step_ms
+    step_ms = steady[len(steady) // 2]
+    out = dict(arch=TRAIN_ARCH, n_layers=cfg.n_layers, params_b=n_params / 1e9,
+               batch=B, seq=S, remat=str(model.remat),
+               microbatch=run.microbatch, steps=res.steps,
+               losses=res.losses, grad_norms=res.grad_norms,
+               step_ms=res.step_ms, median_step_ms=step_ms,
+               tokens_per_step=tokens, tokens_per_s=tokens / (step_ms / 1e3),
+               model_flops_per_step=flops,
+               mfu=flops / (PEAK_BF16 * step_ms / 1e3),
+               peak_mem_gib=peak, launches=counts,
+               split_matmul_layouts=layouts, grad_check=check,
+               plan_est_step_ms=plan.cost.time * 1e3,
+               plan_est_mem_gib=plan.cost.memory / 2**30)
+    for i, (l, g, ms) in enumerate(zip(res.losses, res.grad_norms,
+                                       res.step_ms)):
+        print(f"  step {i}: loss {l:.4f} grad_norm {g:.4f} {ms:.1f} ms "
+              f"({tokens / (ms / 1e3):.0f} tok/s)")
+    # one more step under the profiler, by bucket
+    opt = init_state(params)
+    got = {}
+    out["profile_step"] = prof = profile_step(
+        torch, lambda: got.update(g=loss_and_grads(model, params, batch)[2]),
+        lambda: apply_update(AdamWConfig(), params, got["g"], opt, 1.0))
+    del got
+    print("  profiled step (device ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in prof.items() if k != "top_plain_ops"))
+    print("  plain-torch ops with the most device time (ms, calls): "
+          + "; ".join(f"{r['name']} {r['ms']:.2f} x{r['count']}"
+                      for r in prof["top_plain_ops"]))
+    print(f"train {TRAIN_ARCH}: {res.steps} steps, median step {step_ms:.1f} "
+          f"ms, {out['tokens_per_s']:.0f} tok/s, MFU {out['mfu']:.3f}, peak "
+          f"{peak:.2f} GiB; launches {counts}; split_matmul by layout "
+          f"{layouts}")
+    # the same steps under global remat (the planner's default
+    # checkpointing): every layer's forward runs again in the backward
+    torch.cuda.empty_cache()
+    remat = dataclasses.replace(built, model=dataclasses.replace(
+        model, remat=True))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res_r = train(remat, REMAT_STEPS, seed=args.seed, warmup=1,
+                  device="cuda", params=params, log_every=0)
+    counts_r = ops.launch_counts()
+    want_r, _ = _want_train_launches(remat, REMAT_STEPS, S)
+    if counts_r != want_r or not all(math.isfinite(x)
+                                     for x in res_r.losses):
+        _fail(f"train with remat: launches {counts_r} (the plan's steps "
+              f"need {want_r}), losses {res_r.losses}")
+    ms_r = sorted(res_r.step_ms[1:])[len(res_r.step_ms[1:]) // 2]
+    out["remat_true"] = dict(
+        steps=res_r.steps, losses=res_r.losses, step_ms=res_r.step_ms,
+        median_step_ms=ms_r, tokens_per_s=tokens / (ms_r / 1e3),
+        mfu=flops / (PEAK_BF16 * ms_r / 1e3),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=counts_r)
+    print(f"train {TRAIN_ARCH} with remat: {res_r.steps} steps, median "
+          f"step {ms_r:.1f} ms, {out['remat_true']['tokens_per_s']:.0f} "
+          f"tok/s, MFU {out['remat_true']['mfu']:.3f}, peak "
+          f"{out['remat_true']['peak_mem_gib']:.2f} GiB; launches "
+          f"{counts_r}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -903,6 +1488,48 @@ def main(argv=None) -> int:
           f"the plain versions")
     torch.cuda.empty_cache()
 
+    # 5. the backward kernels at the training step's shapes -------------------
+    qw = get_arch(TRAIN_ARCH)
+    rows, head_rows = TRAIN_BATCH * 4096, TRAIN_BATCH * 512
+    dq, ffq = qw.d_model, qw.d_ff
+    bwd = {"split_matmul_dgrad": [], "split_matmul_wgrad": []}
+    for K, N in ((dq, qw.n_heads * qw.resolved_head_dim), (dq, 2 * ffq),
+                 (ffq, dq)):
+        for role in ("dgrad", "wgrad"):
+            bwd[f"split_matmul_{role}"].append(
+                check_matmul_grad(torch, role, rows, K, N, gen))
+    for role in ("dgrad", "wgrad"):            # the tied head, a CE chunk
+        bwd[f"split_matmul_{role}"].append(check_matmul_grad(
+            torch, role, head_rows, dq, qw.padded_vocab, gen,
+            transpose_w=True))
+    head_fwd = check_matmul_grad(torch, "forward", head_rows, dq,
+                                 qw.padded_vocab, gen, transpose_w=True)
+    bwd["flash_attention_bwd"] = [check_flash_bwd(
+        torch, gen, 1, 4096, qw.n_kv_heads, qw.n_heads // qw.n_kv_heads,
+        qw.resolved_head_dim)]
+    for name, rows_ in bwd.items():
+        for r in rows_ + ([head_fwd] if name == "split_matmul_wgrad" else []):
+            lib = f"{r['library_ms']:.4f} ms"
+            design = (f" [{r['variant']} bn {r['bn']} x {r['splits']} "
+                      f"splits, {r['blocks']} blocks]" if "variant" in r
+                      else "")
+            label = (name if r is not head_fwd
+                     else "split_matmul (tied head, nt)")
+            print(f"  {label:19s} {str(r['shape']):22s}{design} err "
+                  f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms (eager "
+                  f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+                  f"library {lib}, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+    report.update(bwd)
+    report["split_matmul_head_nt"] = head_fwd
+    n_bwd = check_backward_options(torch, gen)
+    print(f"  backward options: {n_bwd} cases off the training path ("
+          + "; ".join(c[-1] for c in FLASH_BWD_CASES) + "; matmul "
+          + "; ".join(c[-1] for c in MATMUL_GRAD_CASES) + ", bf16 and f32)"
+          " agree with the plain versions; every repeated backward "
+          "bit-identical")
+    torch.cuda.empty_cache()
+
     # 3-4. serve each model, then its whole-model logits ----------------------
     serves = {}
     for arch in ARCHS:
@@ -910,16 +1537,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     report["serve"] = serves
 
+    # 6. train qwen1.5-0.5b ---------------------------------------------------
+    trained = train_phase(torch, args)
+    report["train"] = trained
+    torch.cuda.empty_cache()
+    paths = dict(serves, train=trained)
+
     # 5. report ---------------------------------------------------------------
     def launches(name):
-        return sum(s["launches"][name] for s in serves.values())
+        return sum(s["launches"][name] for s in paths.values())
 
     def entry(name, r):
         src, replaces = SOURCES[name]
         return dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches(name),
                     launches_by_path={a: s["launches"][name]
-                                      for a, s in serves.items()},
+                                      for a, s in paths.items()},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -934,7 +1567,11 @@ def main(argv=None) -> int:
                     kernels_per_call=ssd_design["kernels_per_call"],
                     pass_ms=ssd_design["pass_ms"],
                     head_group=ssd[1]["head_group"],
-                    workspace_bytes=ssd[1]["workspace_bytes"])]
+                    workspace_bytes=ssd[1]["workspace_bytes"]),
+               # the largest layer products: w13's dgrad and wgrad
+               entry("split_matmul_dgrad", bwd["split_matmul_dgrad"][1]),
+               entry("split_matmul_wgrad", bwd["split_matmul_wgrad"][1]),
+               entry("flash_attention_bwd", bwd["flash_attention_bwd"][0])]
     report["seconds"] = time.perf_counter() - t_start
     out_path.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))
@@ -946,6 +1583,11 @@ def main(argv=None) -> int:
               f", prefill(512) {sv['prefill512_ms']:.1f} ms, decode step "
               f"({sv['slots']} slots) {sv['decode_step_ms']:.2f} ms, peak "
               f"{sv['peak_mem_gib']:.2f} GiB")
+    tr = trained
+    print(f"train metrics {TRAIN_ARCH} ({report['card']}): median step "
+          f"{tr['median_step_ms']:.1f} ms, {tr['tokens_per_s']:.0f} tok/s, "
+          f"MFU {tr['mfu']:.4f}, peak {tr['peak_mem_gib']:.2f} GiB, losses "
+          + " ".join(f"{x:.4f}" for x in tr["losses"]))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

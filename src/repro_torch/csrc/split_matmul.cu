@@ -52,6 +52,19 @@
 //     not 16-byte aligned.  float32 inputs take a CUDA-core fp32 kernel
 //     (no TF32).
 //
+// Training.  The TPU kernel has no backward (the JAX package trains through
+// its jnp twin, x @ w), so the backward is new here: design (b) in two more
+// operand layouts (`Layout` below), dgrad dx = dy w^T ("NT", w read as
+// stored, the transpose in the load) and wgrad dw = x^T dy ("TN",
+// contracted over the rows); the tied head's forward x emb^T is NT too, so
+// the embedding is never copied transposed.  What bounds them at
+// qwen1.5-0.5b's training shapes (B*S = 32768 rows, bf16): operations.  A
+// layer's six products are 2 * 32768 * (4 * 1024^2 + 1024 * 5632 + 2816 *
+// 1024) = 829 GFLOP for each of forward, dgrad and wgrad, 0.84 ms at
+// 989 TFLOP/s; w13's dgrad (32768 x 5632 -> 1024) is 378 GFLOP, 0.382 ms,
+// against 448 MB of bytes, 0.134 ms.  A dimension not a multiple of 8, a
+// misaligned pointer or float32 takes a strided CUDA-core kernel instead.
+//
 // In (a) and (b) each slice is walked in steps of 64 from its start
 // (rounded down to a multiple of 8 for 16-byte aligned copies); a step's
 // columns outside the slice are cut (weight rows zero in (a), x columns
@@ -410,33 +423,36 @@ struct Wg {
   static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 };
 
-template <int BN>
+// The three operand layouts of one kernel, for out(R, C) = A(R, Kc) .
+// B(Kc, C), with the transpose flags each gives wgmma:
+//   NN (the forward, y = x w): A = x (R, Kc) row-major, K-major; B = w
+//      (Kc, C) row-major, MN-major;
+//   NT (dgrad, dx = dy w^T; also the tied head, x emb^T): A as in NN; B
+//      is w stored (C, Kc) row-major, so B is K-major: its tile is loaded
+//      like A's, BN rows of 128 bytes;
+//   TN (wgrad, dw = x^T dy): A is x stored (Kc, R) row-major, MN-major:
+//      each warpgroup's 64 rows are one 64-column box of x, loaded like a
+//      box of w in NN; B as in NN.
+enum Layout { NN = 0, NT = 1, TN = 2 };
+template <int L>
+struct Flags {
+  static constexpr int TA = L == TN ? 1 : 0;
+  static constexpr int TB = L == NT ? 0 : 1;
+};
+
+template <int BN, int L>
 __device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da,
-                                           uint64_t db, int scale_d);
-template <>
-__device__ __forceinline__ void wgmma_step<256>(float (&d)[128], uint64_t da,
-                                                uint64_t db, int scale_d) {
-  hopper::wgmma_m64n256k16(d, da, db, scale_d);
-}
-template <>
-__device__ __forceinline__ void wgmma_step<192>(float (&d)[96], uint64_t da,
-                                                uint64_t db, int scale_d) {
-  hopper::wgmma_m64n192k16(d, da, db, scale_d);
-}
-template <>
-__device__ __forceinline__ void wgmma_step<128>(float (&d)[64], uint64_t da,
-                                                uint64_t db, int scale_d) {
-  hopper::wgmma_m64n128k16(d, da, db, scale_d);
-}
-template <>
-__device__ __forceinline__ void wgmma_step<64>(float (&d)[32], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  hopper::wgmma_m64n64k16(d, da, db, scale_d);
+                                           uint64_t db, int scale_d) {
+  constexpr int TA = Flags<L>::TA, TB = Flags<L>::TB;
+  if constexpr (BN == 256) hopper::wgmma_m64n256k16<TA, TB>(d, da, db, scale_d);
+  else if constexpr (BN == 192) hopper::wgmma_m64n192k16<TA, TB>(d, da, db, scale_d);
+  else if constexpr (BN == 128) hopper::wgmma_m64n128k16<TA, TB>(d, da, db, scale_d);
+  else hopper::wgmma_m64n64k16<TA, TB>(d, da, db, scale_d);
 }
 
 // The consumer warpgroups' loop and epilogue: warpgroup wg owns rows
 // [64 wg, 64 wg + 64) of the tile.
-template <int BN>
+template <int BN, int L>
 __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
                                         uint64_t* empty, const Steps& st,
                                         int tid, int m0, int n0, int split,
@@ -455,7 +471,10 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
     uint8_t* a = smem + stage * STAGE_BYTES;
     int k0, lo, hi;
     st.at(i, k0, lo, hi);
-    if (lo > 0 || hi < min(KSTEP, K - k0)) {   // zero x outside the slice
+    // zero x outside the slice (NN only: the NT and TN wrappers cut K at
+    // multiples of KSTEP, so only the tensor's end is ragged, where TMA
+    // fills zeros)
+    if (L == NN && (lo > 0 || hi < min(KSTEP, K - k0))) {
       for (int e = t128; e < 64 * KSTEP; e += 128) {
         const int r = e / KSTEP, kk = e % KSTEP;
         if (kk < lo || kk >= hi) {
@@ -468,15 +487,23 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
       fence_proxy_async();
       named_bar_sync(1 + wg, 128);
     }
+    // K-major tiles advance 32 bytes a k16 step within their 128-byte
+    // rows; MN-major ones 16 rows of 128 bytes, their 64-wide boxes
+    // B_BOX apart.  Each warpgroup's A is 64 rows: 8 KB either way.
     const uint32_t a_addr = smem_u32(a) + wg * 64 * 128;
     const uint32_t b_addr = smem_u32(a + A_BYTES);
     fence_regs(d);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KSTEP / 16; ++kk)
-      wgmma_step<BN>(d, wgmma_desc_sw128(a_addr + kk * 32, 16, 1024),
-                     wgmma_desc_sw128(b_addr + kk * 16 * 128, B_BOX, 1024),
-                     i > 0 || kk > 0);
+    for (int kk = 0; kk < KSTEP / 16; ++kk) {
+      const uint64_t da =
+          L == TN ? wgmma_desc_sw128(a_addr + kk * 16 * 128, B_BOX, 1024)
+                  : wgmma_desc_sw128(a_addr + kk * 32, 16, 1024);
+      const uint64_t db =
+          L == NT ? wgmma_desc_sw128(b_addr + kk * 32, 16, 1024)
+                  : wgmma_desc_sw128(b_addr + kk * 16 * 128, B_BOX, 1024);
+      wgmma_step<BN, L>(d, da, db, i > 0 || kk > 0);
+    }
     wgmma_commit();
     // keep this step's products in flight; the previous step's are done,
     // so its stage goes back to the producer
@@ -520,7 +547,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
   }
 }
 
-template <int BN>
+template <int BN, int L>
 __global__ void __launch_bounds__(384, 1)
 split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                           const __grid_constant__ CUtensorMap tw,
@@ -565,11 +592,21 @@ split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         st.at(i, k0, lo, hi);
         uint8_t* a = smem + stage * STAGE_BYTES;
         mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
-        tma_load_2d(a, &tx, &full[stage], k0, m0);
+        if (L == TN) {               // two 64-column boxes of x^T
+          tma_load_2d(a, &tx, &full[stage], m0, k0);
+          tma_load_2d(a + B_BOX, &tx, &full[stage], m0 + 64, k0);
+        } else {
+          tma_load_2d(a, &tx, &full[stage], k0, m0);
+        }
 #pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(a + A_BYTES + j * B_BOX, &tw, &full[stage],
-                      n0 + 64 * j, k0);
+        for (int j = 0; j < BN / 64; ++j) {
+          if (L == NT)               // 64 rows of w, K-major
+            tma_load_2d(a + A_BYTES + j * B_BOX, &tw, &full[stage], k0,
+                        n0 + 64 * j);
+          else
+            tma_load_2d(a + A_BYTES + j * B_BOX, &tw, &full[stage],
+                        n0 + 64 * j, k0);
+        }
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -578,7 +615,8 @@ split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     }
   } else {
     setmaxnreg_inc<232>();
-    consume<BN>(smem, full, empty, st, tid, m0, n0, split, y, ws, M, N, K);
+    consume<BN, L>(smem, full, empty, st, tid, m0, n0, split, y, ws, M, N,
+                   K);
   }
 }
 
@@ -681,27 +719,104 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+// out (M, N) = A (M, K) . B (K, N) in layout L: x is A as stored ((M, K),
+// or (K, M) for TN), w is B as stored ((K, N), or (N, K) for NT)
+template <int BN, int L>
 int launch_wgmma(const void* x, const void* w, void* y, float* ws, int M,
                  int N, int K, int kslice, int splits, int sps,
                  cudaStream_t stream) {
   CUtensorMap tx, tw;
-  if (!tensor_map(&tx, x, K, M, KSTEP, WG_BM) ||
-      !tensor_map(&tw, w, N, K, 64, KSTEP))
-    return (int)cudaErrorInvalidValue;
+  const bool ok_x = L == TN ? tensor_map(&tx, x, M, K, 64, KSTEP)
+                            : tensor_map(&tx, x, K, M, KSTEP, WG_BM);
+  const bool ok_w = L == NT ? tensor_map(&tw, w, K, N, KSTEP, 64)
+                            : tensor_map(&tw, w, N, K, 64, KSTEP);
+  if (!ok_x || !ok_w) return (int)cudaErrorInvalidValue;
   constexpr int smem = Wg<BN>::SMEM;
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        split_matmul_wgmma_kernel<BN>,
+        split_matmul_wgmma_kernel<BN, L>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
   const dim3 grid((M + WG_BM - 1) / WG_BM, (N + BN - 1) / BN, splits);
-  split_matmul_wgmma_kernel<BN><<<grid, 384, smem, stream>>>(
+  split_matmul_wgmma_kernel<BN, L><<<grid, 384, smem, stream>>>(
       tx, tw, (bf16*)y, splits > 1 ? ws : nullptr, M, N, K, kslice, sps);
   return (int)cudaGetLastError();
+}
+
+template <int L>
+int launch_wgmma_bn(const void* x, const void* w, void* y, float* ws, int M,
+                    int N, int K, int kslice, int bn, int splits, int sps,
+                    cudaStream_t st) {
+  if (bn == 256) return launch_wgmma<256, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+  if (bn == 192) return launch_wgmma<192, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+  if (bn == 128) return launch_wgmma<128, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+  if (bn == 64) return launch_wgmma<64, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// --- any layout, any shape, bf16 or float32: strided CUDA-core kernel ------
+// out (R, C) = sum_k A(r, k) B(k, c), A(r, k) = a[r * sar + k * sak],
+// B(k, c) = b[k * sbk + c * sbc], fp32 sums in k order, each thread a 4x4
+// patch of a 64x64 tile.  For what the wgmma design cannot take in the
+// backward layouts (float32; a row stride not a multiple of 8; a base
+// pointer not 16-byte aligned).
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+split_matmul_strided_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                            T* __restrict__ y, int R, int C, int Kc,
+                            long long sar, long long sak, long long sbk,
+                            long long sbc) {
+  constexpr int FK = 16, TR = 64, TCOL = 64;
+  __shared__ float As[FK][TR + 1];
+  __shared__ float Bs[FK][TCOL];
+  const int tid = threadIdx.x;
+  const int tr = (tid / 16) * 4, tc = (tid % 16) * 4;
+  const int r0 = blockIdx.y * TR, c0 = blockIdx.x * TCOL;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < Kc; k0 += FK) {
+    for (int e = tid; e < TR * FK; e += 256) {
+      const int r = e % TR, kk = e / TR;
+      const int gr = r0 + r, gk = k0 + kk;
+      As[kk][r] = (gr < R && gk < Kc) ? to_f(a[gr * sar + gk * sak]) : 0.0f;
+    }
+    for (int e = tid; e < FK * TCOL; e += 256) {
+      const int c = e % TCOL, kk = e / TCOL;
+      const int gk = k0 + kk, gc = c0 + c;
+      Bs[kk][c] = (gk < Kc && gc < C) ? to_f(b[gk * sbk + gc * sbc]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[kk][tr + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tc + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gr = r0 + tr + i, gc = c0 + tc + j;
+      if (gr < R && gc < C) from_f(y + (size_t)gr * C + gc, acc[i][j]);
+    }
 }
 
 }  // namespace
@@ -725,20 +840,42 @@ extern "C" int split_matmul_stream_bf16(const void* x, const void* w, void* y,
   return launch_reduce(wsf, y, M, N, splits, st);
 }
 
+// layout 0 = NN (x (M,K) . w (K,N)), 1 = NT (x (M,K) . w^T, w stored
+// (N,K)), 2 = TN (x^T . w, x stored (K,M), w (K,N)); out (M, N).  NT and
+// TN need kslice % 64 == 0 (the wrapper's plan gives it).
 extern "C" int split_matmul_wgmma_bf16(const void* x, const void* w, void* y,
-                                       void* ws, int M, int N, int K,
-                                       int kslice, int bn, int splits,
+                                       void* ws, int layout, int M, int N,
+                                       int K, int kslice, int bn, int splits,
                                        int sps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* wsf = (float*)ws;
+  if (layout != NN && kslice % KSTEP) return (int)cudaErrorInvalidValue;
   int rc;
-  if (bn == 256) rc = launch_wgmma<256>(x, w, y, wsf, M, N, K, kslice, splits, sps, st);
-  else if (bn == 192) rc = launch_wgmma<192>(x, w, y, wsf, M, N, K, kslice, splits, sps, st);
-  else if (bn == 128) rc = launch_wgmma<128>(x, w, y, wsf, M, N, K, kslice, splits, sps, st);
-  else if (bn == 64) rc = launch_wgmma<64>(x, w, y, wsf, M, N, K, kslice, splits, sps, st);
+  if (layout == NN) rc = launch_wgmma_bn<NN>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
+  else if (layout == NT) rc = launch_wgmma_bn<NT>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
+  else if (layout == TN) rc = launch_wgmma_bn<TN>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
   else return (int)cudaErrorInvalidValue;
   if (rc != 0 || splits <= 1) return rc;
   return launch_reduce(wsf, y, M, N, splits, st);
+}
+
+// out (R, C) = A . B with A(r, k) = a[r sar + k sak], B(k, c) = b[k sbk +
+// c sbc]; dtype 0 = float32, 1 = bfloat16.
+extern "C" int split_matmul_strided(const void* a, const void* b, void* y,
+                                    int R, int C, int Kc, long long sar,
+                                    long long sak, long long sbk,
+                                    long long sbc, int dtype, void* stream) {
+  const dim3 grid((C + 63) / 64, (R + 63) / 64);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    split_matmul_strided_kernel<bf16><<<grid, 256, 0, st>>>(
+        (const bf16*)a, (const bf16*)b, (bf16*)y, R, C, Kc, sar, sak, sbk,
+        sbc);
+  else
+    split_matmul_strided_kernel<float><<<grid, 256, 0, st>>>(
+        (const float*)a, (const float*)b, (float*)y, R, C, Kc, sar, sak, sbk,
+        sbc);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int split_matmul_bf16(const void* x, const void* w, void* y,

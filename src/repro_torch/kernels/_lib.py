@@ -100,20 +100,24 @@ def lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.split_matmul_bf16.argtypes = [p, p, p, i, i, i, i, p]
         handle.split_matmul_f32.argtypes = [p, p, p, i, i, i, i, p]
-        for fn in (handle.split_matmul_stream_bf16,
-                   handle.split_matmul_wgmma_bf16):
-            fn.argtypes = [p, p, p, p] + [i] * 7 + [p]
-        handle.flash_attention_fwd.argtypes = [
-            p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         ll = ctypes.c_longlong
+        handle.split_matmul_stream_bf16.argtypes = [p] * 4 + [i] * 7 + [p]
+        handle.split_matmul_wgmma_bf16.argtypes = [p] * 4 + [i] * 8 + [p]
+        handle.split_matmul_strided.argtypes = [p] * 3 + [i] * 3 + [ll] * 4 \
+            + [i, p]
+        handle.flash_attention_fwd.argtypes = [p] * 5 + [i] * 9 + [
+            ctypes.c_float, i, p]
+        handle.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [
+            ctypes.c_float, i, p]
         for fn in (handle.ssd_scan_bf16, handle.ssd_scan_f32):
             fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [
                 ctypes.POINTER(ll), p, ll, p]
         for fn in (handle.split_matmul_bf16, handle.split_matmul_f32,
                    handle.split_matmul_stream_bf16,
                    handle.split_matmul_wgmma_bf16,
-                   handle.flash_attention_fwd, handle.ssd_scan_bf16,
-                   handle.ssd_scan_f32):
+                   handle.split_matmul_strided,
+                   handle.flash_attention_fwd, handle.flash_attention_bwd,
+                   handle.ssd_scan_bf16, handle.ssd_scan_f32):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

@@ -29,12 +29,35 @@ def split_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     return acc.to(x.dtype)
 
 
+def split_matmul_dgrad_ref(dy: torch.Tensor, w: torch.Tensor, *,
+                           transpose_w: bool = False,
+                           bk: Optional[int] = 512) -> torch.Tensor:
+    """dx of y = x @ w: dy (M, N) @ w^T for w (K, N); with `transpose_w`
+    (y = x @ w^T, w (N, K)) dy @ w.  As the forward: the contracted N in
+    slices of `bk` summed into one fp32 accumulator, cast to dy.dtype."""
+    return split_matmul_ref(dy, w if transpose_w else w.t(), bk=bk)
+
+
+def split_matmul_wgrad_ref(x: torch.Tensor, dy: torch.Tensor, *,
+                           transpose_w: bool = False,
+                           bk: Optional[int] = 512) -> torch.Tensor:
+    """dw of y = x @ w: x^T (K, M) @ dy (M, N); with `transpose_w`
+    dy^T @ x, shaped (N, K) like the stored weight.  As the forward: the
+    contracted M rows in slices of `bk` summed into one fp32
+    accumulator, cast to the inputs' dtype."""
+    if transpose_w:
+        return split_matmul_ref(dy.t(), x, bk=bk)
+    return split_matmul_ref(x.t(), dy, bk=bk)
+
+
 def split_matmul_splitk_ref(x: torch.Tensor, w: torch.Tensor, bk: int,
                             ranges) -> torch.Tensor:
     """The summation order of the CUDA kernel's split-K plans: K is cut
     into `ranges` [(k0, k1), ...] of whole slices of `bk`; within a
     range the slices add into one fp32 accumulator, then the ranges'
-    fp32 partials are summed in range order and cast to x.dtype."""
+    fp32 partials are summed in range order and cast to x.dtype.  The
+    backward layouts take it on views: "nt" (x, w.t()), "tn" (x.t(), w).
+    """
     xf, wf = x.float(), w.float()
     total = None
     for k0, k1 in ranges:
@@ -50,17 +73,20 @@ def split_matmul_splitk_ref(x: torch.Tensor, w: torch.Tensor, bk: int,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int = 0,
                         q_offset: int = 0, bq: int = 512,
-                        bk: int = 1024) -> torch.Tensor:
+                        bk: int = 1024, return_lse: bool = False):
     """Blockwise online-softmax attention, a line-by-line port of the JAX
     model path's `models/attention.py::flash_attention`.
 
-    q:(B,S,KV,G,hd) k,v:(B,T,KV,hd) -> (B,S,KV,G,hd)."""
+    q:(B,S,KV,G,hd) k,v:(B,T,KV,hd) -> (B,S,KV,G,hd); with `return_lse`
+    also each row's logsumexp m + log(l) of the scaled scores (fp32,
+    (B,S,KV,G)), what the backward recomputes the softmax from."""
     B, S, KV, G, hd = q.shape
     T = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     bq, bk = min(bq, S), min(bk, T)
     dev = q.device
     out = torch.empty(B, S, KV, G, hd, dtype=torch.float32, device=dev)
+    lse = torch.empty(B, S, KV, G, dtype=torch.float32, device=dev)
     for q0 in range(0, S, bq):
         qb = q[:, q0:q0 + bq]
         n = qb.shape[1]
@@ -88,7 +114,51 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]
         out[:, q0:q0 + n] = o.permute(0, 3, 1, 2, 4)
+        lse[:, q0:q0 + n] = (m + torch.log(l)).permute(0, 3, 1, 2)
+    if return_lse:
+        return out.to(q.dtype), lse
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool, window: int = 0,
+                            q_offset: int = 0, bq: int = 512) -> tuple:
+    """The CUDA backward's arithmetic in fp32, blockwise over query rows:
+    D = rowsum(dO o); per block P = exp(q.k^T scale - lse) recomputed
+    (0 where masked), dv += P^T dO, dP = dO v^T, dS = P (dP - D),
+    dq = dS k scale, dk += dS^T q scale; dk, dv summed over the G query
+    heads of each kv head.  -> (dq, dk, dv) in the inputs' dtypes."""
+    B, S, KV, G, hd = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    dsum = (dout.float() * o.float()).sum(-1)            # (B,S,KV,G)
+    dq = torch.empty(B, S, KV, G, hd, dtype=torch.float32, device=dev)
+    dk = torch.zeros(B, T, KV, hd, dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    k_pos = torch.arange(T, device=dev)
+    for q0 in range(0, S, bq):
+        qb, gb = q[:, q0:q0 + bq].float(), dout[:, q0:q0 + bq].float()
+        n = qb.shape[1]
+        q_pos = q_offset + q0 + torch.arange(n, device=dev)
+        msk = torch.ones(n, T, dtype=torch.bool, device=dev)
+        if causal:
+            msk &= k_pos[None, :] <= q_pos[:, None]
+        if window:
+            msk &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = torch.einsum("bqkgh,btkh->bkgqt", qb, kf) * scale
+        l_b = lse[:, q0:q0 + n].permute(0, 2, 3, 1)[..., None]
+        p = torch.where(msk, torch.exp(s - l_b), torch.zeros((), device=dev))
+        dv += torch.einsum("bkgqt,bqkgh->btkh", p, gb)
+        dp = torch.einsum("bqkgh,btkh->bkgqt", gb, vf)
+        d_b = dsum[:, q0:q0 + n].permute(0, 2, 3, 1)[..., None]
+        ds = p * (dp - d_b)
+        dq[:, q0:q0 + n] = torch.einsum("bkgqt,btkh->bqkgh", ds, kf) * scale
+        dk += torch.einsum("bkgqt,bqkgh->btkh", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

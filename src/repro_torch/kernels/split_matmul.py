@@ -17,6 +17,23 @@ with split-K is the main kernel and its in-order sum of the splits.
 - ``"general"``: the first version, only for what the other two cannot
   take (float32; K or N not a multiple of 8; a base pointer not 16-byte
   aligned), with the reason in the plan.
+
+The backward takes the same kernel in two more operand layouts
+(`LAYOUTS`), chosen by role:
+
+- `split_matmul_dgrad` (dx = dy w^T; counted in `dgrad_launches`) reads
+  w as stored, transposed in the load ("nt"); for a weight the forward
+  used transposed (the tied head, y = x emb^T) it is the plain "nn";
+- `split_matmul_wgrad` (dw = x^T dy; counted in `wgrad_launches`)
+  contracts over the rows ("tn");
+- `split_matmul(..., transpose_w=True)` is the tied head's forward in
+  "nt", with no transposed copy of the embedding.
+
+"nt" and "tn" take the wgmma design at every row count, with K cut at
+multiples of 64 (`BWD_KSLICE`, so only the tensor's end is ragged) and
+split-K where the tiles leave SMs idle; what it cannot take (float32,
+a dimension not a multiple of 8, a misaligned pointer) goes to a
+strided CUDA-core kernel (variant "general").
 """
 from __future__ import annotations
 
@@ -43,7 +60,12 @@ SM_FLOPS = 4.6e12      # FLOP/s
 SM_TILE_BYTES = 5.5e10  # bytes/s
 WS_BYTES = 3e12        # bytes/s
 LAUNCH_S = 2e-6        # seconds
-launches = 0           # kernel launches since the last reset
+LAYOUTS = {"nn": 0, "nt": 1, "tn": 2}   # the C entry's layout codes
+BWD_KSLICE = 512       # K unit of the "nt"/"tn" plans, a multiple of 64
+launches = 0           # forward launches since the last reset
+dgrad_launches = 0     # dx launches
+wgrad_launches = 0     # dw launches
+layout_launches = dict.fromkeys(LAYOUTS, 0)   # every role's, by layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,10 +98,15 @@ def _splits(n_slices: int, want: int) -> Tuple[int, int]:
 
 @functools.lru_cache(maxsize=4096)
 def plan_launch(M: int, N: int, K: int, bk: int, *, n_sm: int = N_SM,
-                dtype: str = "bfloat16", aligned: bool = True) -> LaunchPlan:
-    """The design, tile and K split for x(M, K) @ w(K, N) with K slices
-    of `bk`, on a card of `n_sm` SMs."""
-    kslice = max(1, min(bk, K))
+                dtype: str = "bfloat16", aligned: bool = True,
+                layout: str = "nn") -> LaunchPlan:
+    """The design, tile and K split for out(M, N) = A(M, K) . B(K, N)
+    with K slices of `bk`, on a card of `n_sm` SMs; `layout` says how A
+    and B are stored (`LAYOUTS`)."""
+    if layout == "nn":
+        kslice = max(1, min(bk, K))
+    else:
+        kslice = 64 * math.ceil(min(bk, K) / 64)
     n_slices = math.ceil(K / kslice)
 
     def plan(variant, bm, bn, splits, sps, reason):
@@ -91,15 +118,16 @@ def plan_launch(M: int, N: int, K: int, bk: int, *, n_sm: int = N_SM,
     general = None
     if dtype != "bfloat16":
         general = f"{dtype} inputs: the fp32 CUDA-core kernel"
-    elif K % 8 or N % 8:
-        general = (f"K={K} or N={N} not a multiple of 8: TMA and 16-byte "
+    elif K % 8 or N % 8 or (layout != "nn" and M % 8):
+        dims_ = f"K={K}, N={N}" + (f", M={M}" if layout != "nn" else "")
+        general = (f"{dims_}: not all a multiple of 8; TMA and 16-byte "
                    f"copies need 16-byte row strides")
     elif not aligned:
         general = "a base pointer not 16-byte aligned"
     if general:
         return plan("general", TILE, TILE, 1, n_slices, general)
 
-    if M <= STREAM_MAX_M:
+    if M <= STREAM_MAX_M and layout == "nn":
         bm = 8 * (1 << max(0, math.ceil(math.log2(math.ceil(M / 8)))))
         target = 2 * n_sm
         for bn in STREAM_BNS:
@@ -137,7 +165,8 @@ def plan_launch(M: int, N: int, K: int, bk: int, *, n_sm: int = N_SM,
                 best, best_cost = (bn, splits, sps), cost
     bn, splits, sps = best
     return plan("wgmma", WGMMA_BM, bn, splits, sps,
-                f"{M} rows > {STREAM_MAX_M}: TMA + wgmma")
+                f"{M} rows > {STREAM_MAX_M}: TMA + wgmma" if layout == "nn"
+                else f"layout {layout}: TMA + wgmma")
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,61 +174,129 @@ def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan_for(x: torch.Tensor, w: torch.Tensor, bk: int) -> LaunchPlan:
+def dims(a: torch.Tensor, b: torch.Tensor, layout: str) -> Tuple[int, int,
+                                                                 int]:
+    """(M, N, K) of out(M, N) = A . B with A, B stored as `layout` says:
+    "nn" a (M, K), b (K, N); "nt" a (M, K), b (N, K); "tn" a (K, M),
+    b (K, N)."""
+    if layout == "nn":
+        return a.shape[0], b.shape[1], a.shape[1]
+    if layout == "nt":
+        return a.shape[0], b.shape[0], a.shape[1]
+    return a.shape[1], b.shape[1], a.shape[0]
+
+
+def plan_for(x: torch.Tensor, w: torch.Tensor, bk: int,
+             layout: str = "nn") -> LaunchPlan:
     """`plan_launch` for these tensors on their card."""
-    M, K = x.shape
+    M, N, K = dims(x, w, layout)
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    return plan_launch(M, w.shape[1], K, bk, n_sm=_n_sm(x.device.index or 0),
+    return plan_launch(M, N, K, bk, n_sm=_n_sm(x.device.index or 0),
                        dtype=str(x.dtype).removeprefix("torch."),
-                       aligned=aligned)
+                       aligned=aligned, layout=layout)
 
 
-def split_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = TILE,
-                 bn: int = TILE, bk: int = 512) -> torch.Tensor:
-    """x:(M,K) @ w:(K,N) -> (M,N) in x.dtype with an fp32 accumulator;
-    K runs in slices of `bk` (operator-splitting granularity K/bk).
-    Ragged M, N, K are fine.  The tile is the plan's (`plan_launch`), so
-    `bm`/`bn` must be 64; they are kept for the TPU kernel's
-    signature."""
-    global launches
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"split_matmul needs CUDA tensors on one device, "
-                         f"got {x.device} and {w.device}")
-    if x.dtype != w.dtype or x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"split_matmul takes bf16 or f32 pairs, got "
-                        f"{x.dtype} and {w.dtype}")
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"bad shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("split_matmul needs contiguous row-major inputs")
-    if (bm, bn) != (TILE, TILE) or bk < 1:
-        raise ValueError(f"blocks (bm={bm}, bn={bn}, bk={bk}): the kernel "
-                         f"chooses its own tiles, bm and bn must be {TILE} "
-                         f"and bk >= 1")
-    M, K = x.shape
-    N = w.shape[1]
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+def _check(a: torch.Tensor, b: torch.Tensor, layout: str, what: str):
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{what} needs CUDA tensors on one device, got "
+                         f"{a.device} and {b.device}")
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} takes bf16 or f32 pairs, got {a.dtype} and "
+                        f"{b.dtype}")
+    contracted = {"nn": (1, 0), "nt": (1, 1), "tn": (0, 0)}[layout]
+    if a.ndim != 2 or b.ndim != 2 or \
+            a.shape[contracted[0]] != b.shape[contracted[1]]:
+        raise ValueError(f"{what}: bad shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} for layout {layout}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous row-major inputs")
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, layout: str, bk: int,
+            role: str) -> torch.Tensor:
+    """out(M, N) = A . B (see `dims`) in a's dtype through the plan's
+    design; a launch adds one to the count of `role` ("fwd", "dgrad" or
+    "wgrad") and of its layout."""
+    global launches, dgrad_launches, wgrad_launches
+    M, N, K = dims(a, b, layout)
+    y = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return y
     if K == 0:
         return y.zero_()
     lib = _lib.lib()
-    plan = plan_for(x, w, bk)
-    stream = _lib.stream_of(x)
-    if plan.variant == "general":
-        fn = (lib.split_matmul_bf16 if x.dtype == torch.bfloat16
+    plan = plan_for(a, b, bk, layout)
+    stream = _lib.stream_of(a)
+    if plan.variant == "general" and layout == "nn":
+        fn = (lib.split_matmul_bf16 if a.dtype == torch.bfloat16
               else lib.split_matmul_f32)
-        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, bk,
+        rc = fn(a.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, bk,
                 stream)
+    elif plan.variant == "general":
+        # A(r, k) = a[r sar + k sak], B(k, c) = b[k sbk + c sbc]
+        sar, sak = (K, 1) if layout == "nt" else (1, M)
+        sbk, sbc = (1, K) if layout == "nt" else (N, 1)
+        rc = lib.split_matmul_strided(
+            a.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, sar, sak,
+            sbk, sbc, 1 if a.dtype == torch.bfloat16 else 0, stream)
     else:
         ws = (torch.empty(plan.workspace, dtype=torch.float32,
-                          device=x.device) if plan.workspace else None)
-        fn = (lib.split_matmul_stream_bf16 if plan.variant == "stream"
-              else lib.split_matmul_wgmma_bf16)
-        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                ws.data_ptr() if ws is not None else None, M, N, K,
-                plan.kslice, plan.bn, plan.splits, plan.slices_per_split,
-                stream)
-    _lib.check(rc, f"split_matmul ({plan.variant})")
-    launches += 1
+                          device=a.device) if plan.workspace else None)
+        args = (a.data_ptr(), b.data_ptr(), y.data_ptr(),
+                ws.data_ptr() if ws is not None else None)
+        if plan.variant == "stream":
+            rc = lib.split_matmul_stream_bf16(
+                *args, M, N, K, plan.kslice, plan.bn, plan.splits,
+                plan.slices_per_split, stream)
+        else:
+            rc = lib.split_matmul_wgmma_bf16(
+                *args, LAYOUTS[layout], M, N, K, plan.kslice, plan.bn,
+                plan.splits, plan.slices_per_split, stream)
+    _lib.check(rc, f"split_matmul ({layout}, {plan.variant})")
+    layout_launches[layout] += 1
+    if role == "dgrad":
+        dgrad_launches += 1
+    elif role == "wgrad":
+        wgrad_launches += 1
+    else:
+        launches += 1
     return y
+
+
+def split_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = TILE,
+                 bn: int = TILE, bk: int = 512,
+                 transpose_w: bool = False) -> torch.Tensor:
+    """x:(M,K) @ w:(K,N) -> (M,N) in x.dtype with an fp32 accumulator;
+    K runs in slices of `bk` (operator-splitting granularity K/bk).
+    Ragged M, N, K are fine.  The tile is the plan's (`plan_launch`), so
+    `bm`/`bn` must be 64; they are kept for the TPU kernel's
+    signature.  `transpose_w`: w is stored (N, K) and x @ w^T is taken
+    ("nt", the tied head), with no copy of w."""
+    layout = "nt" if transpose_w else "nn"
+    _check(x, w, layout, "split_matmul")
+    if (bm, bn) != (TILE, TILE) or bk < 1:
+        raise ValueError(f"blocks (bm={bm}, bn={bn}, bk={bk}): the kernel "
+                         f"chooses its own tiles, bm and bn must be {TILE} "
+                         f"and bk >= 1")
+    return _launch(x, w, layout, bk, "fwd")
+
+
+def split_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
+                       transpose_w: bool = False,
+                       bk: int = BWD_KSLICE) -> torch.Tensor:
+    """dx = dy:(M,N) @ w^T for the forward x @ w with w (K, N) -> (M, K)
+    in dy.dtype ("nt"); with `transpose_w` the forward was x @ w^T, w
+    (N, K), and dx = dy @ w ("nn")."""
+    layout = "nn" if transpose_w else "nt"
+    _check(dy, w, layout, "split_matmul_dgrad")
+    return _launch(dy, w, layout, bk, "dgrad")
+
+
+def split_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
+                       transpose_w: bool = False,
+                       bk: int = BWD_KSLICE) -> torch.Tensor:
+    """dw = x:(M,K)^T @ dy:(M,N) -> (K, N) ("tn"), contracted over the M
+    rows; with `transpose_w` (forward x @ w^T) dw = dy^T @ x -> (N, K)."""
+    a, b = (dy, x) if transpose_w else (x, dy)
+    _check(a, b, "tn", "split_matmul_wgrad")
+    return _launch(a, b, "tn", bk, "wgrad")

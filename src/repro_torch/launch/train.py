@@ -1,0 +1,92 @@
+"""Training launcher: the OSDP pipeline, then training on one device.
+
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --reduced \\
+        --cpu --steps 3
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --batch 8 \\
+        --device h100-sxm --memory-gib 64 --steps 5
+
+Runs the OSDP pipeline (describe -> search -> plan) for a one-device
+mesh, builds the model with the plan's segments and remat policy, and
+trains on the synthetic pipeline through the port's kernels.  It runs
+on the card unless `--cpu` is given (the kernels' plain versions);
+without a card and without `--cpu` it raises, and never falls back.
+With `--reduced` and no `--seq`/`--batch` the shape is cut to seq 128
+and batch 4 (smoke scale; the JAX launcher keeps the shape's own).
+
+The JAX launcher's `--overlap*` flags (OverlapConfig, ROADMAP section 1
+item 6) and `--ckpt-dir`/`--ckpt-every`/`--keep-last`/`--resume`
+(checkpointing, ROADMAP section 1 item 2) are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+from repro_torch.configs import (DeviceInfo, MeshConfig, OSDPConfig,
+                                 RunConfig, get_arch, get_shape, reduced)
+from repro_torch.core.plan import make_plan
+from repro_torch.models.registry import build_model, resolve_device
+from repro_torch.optim import AdamWConfig
+from repro_torch.train.loop import train
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the smoke-scale variant (CPU-sized)")
+    ap.add_argument("--seq", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=100)
+    ap.add_argument("--memory-gib", type=float, default=16.0)
+    ap.add_argument("--device", default=None, metavar="PRESET",
+                    help="DeviceInfo preset the planner prices against "
+                         "(tpu-v5e, tpu-v4, a100-80g, h100-sxm)")
+    ap.add_argument("--force-mode", default=None, choices=["DP", "ZDP"])
+    ap.add_argument("--no-osdp", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu", action="store_true",
+                    help="train on the CPU (the kernels' plain versions) "
+                         "instead of the card")
+    args = ap.parse_args(argv)
+    dev = resolve_device("cpu" if args.cpu else None)
+
+    model_cfg = get_arch(args.arch)
+    if args.reduced:
+        model_cfg = reduced(model_cfg)
+    shape = get_shape(args.shape)
+    if args.seq or args.batch:
+        shape = dataclasses.replace(
+            shape, seq_len=args.seq or shape.seq_len,
+            global_batch=args.batch or shape.global_batch)
+    if args.reduced and not args.seq:
+        shape = dataclasses.replace(shape, seq_len=min(shape.seq_len, 128))
+    if args.reduced and not args.batch:
+        shape = dataclasses.replace(shape,
+                                    global_batch=min(shape.global_batch, 4))
+
+    mesh_cfg = MeshConfig((1, 1), ("data", "model"))
+    osdp = OSDPConfig(enabled=not args.no_osdp,
+                      memory_limit_bytes=args.memory_gib * 2**30,
+                      force_mode=args.force_mode)
+    run = RunConfig(model=model_cfg, shape=shape, mesh=mesh_cfg, osdp=osdp)
+    device = DeviceInfo.preset(args.device) if args.device else None
+    plan = make_plan(run, device)
+    print(plan.summary())
+    built = build_model(run, plan)
+    print(f"remat: {built.model.remat}; microbatch {run.microbatch}; "
+          f"device {dev}")
+    res = train(built, args.steps, seed=args.seed,
+                opt_cfg=AdamWConfig(lr=args.lr), warmup=args.warmup,
+                device=dev)
+    print(f"done: {res.steps} steps, loss {res.losses[0]:.4f} -> "
+          f"{res.losses[-1]:.4f}, {res.tokens_per_s:.0f} tok/s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

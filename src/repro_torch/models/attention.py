@@ -1,11 +1,15 @@
-"""GQA attention: the flash kernel on the prefill path + cached decode.
+"""GQA attention: the flash kernel on the training/prefill path + cached
+decode.
 
 Layouts (see common.AttnGeom), as in the JAX package:
   q: (B, S, KV, Gp, hd)   — grouped by kv head; Gp includes padding
   k/v: (B, T, KV, hd)
 
-Prefill attention is the `flash_attention` kernel (`kernels/ops`): the
-CUDA kernel for CUDA tensors, the blockwise plain version on the CPU.
+Full-sequence attention (`attn_forward`: training and prefill) is the
+`flash_attention` kernel (`kernels/ops`): the CUDA kernel for CUDA
+tensors, the blockwise plain version on the CPU; in training its
+differentiable form (`ops.attention`), whose backward is the
+`flash_attention` backward kernel.
 Decode is plain torch: one query row per sequence against the cache,
 which the JAX package also leaves to the compiler (no kernel to port).
 
@@ -25,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import AttnGeom, rotate
-from repro_torch.sharding.specs import ParamSet, seg_matmul
+from repro_torch.sharding.specs import ParamSet, differentiable, seg_matmul
 
 NEG_INF = -1e30
 
@@ -33,10 +37,14 @@ NEG_INF = -1e30
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
-    """q:(B,S,KV,G,hd) k,v:(B,T,KV,hd) -> (B,S,KV,G,hd), via the kernel."""
-    return ops.flash_attention(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal,
-                               window=window, q_offset=q_offset)
+    """q:(B,S,KV,G,hd) k,v:(B,T,KV,hd) -> (B,S,KV,G,hd), via the kernel
+    (differentiable when autograd records)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if differentiable(q, k, v):
+        return ops.attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -113,7 +121,7 @@ def _rotate_qk(cfg: ModelConfig, geom: AttnGeom, q: torch.Tensor,
 def attn_forward(cfg: ModelConfig, geom: AttnGeom, pset: ParamSet,
                  lp: Dict[str, torch.Tensor], x: torch.Tensor,
                  positions: torch.Tensor, *, window: int = 0) -> torch.Tensor:
-    """Full-sequence (prefill) attention."""
+    """Full-sequence attention (training, no cache; and prefill)."""
     q, k, v = _proj_qkv(cfg, geom, pset, lp, x)
     q, k = _rotate_qk(cfg, geom, q, k, positions)
     win = window or cfg.sliding_window

@@ -19,11 +19,11 @@ def ffn_forward(cfg: ModelConfig, pset: ParamSet,
     A plan that split the op into mixed-mode segments runs seg_matmul
     (paper §3.3 per-slice modes); otherwise two plain products.  Both
     go through the `split_matmul` kernel.  Chunked operator splitting
-    (granularity > 1, `core/operator_split.py`) is a training-memory
-    device and comes with the training slice; serving calls with 1."""
+    (granularity > 1, `core/operator_split.py`) is not ported yet."""
     if granularity > 1:
-        raise NotImplementedError("chunked FFN splitting comes with the "
-                                  "training slice")
+        raise NotImplementedError("chunked FFN splitting (granularity > 1, "
+                                  "core/operator_split.py) is not ported "
+                                  "yet")
     w13_path, w2_path = f"{prefix}/w13", f"{prefix}/w2"
     mixed = pset.layouts[w13_path].is_split or pset.layouts[w2_path].is_split
     if mixed:

@@ -2,8 +2,9 @@
 
 `build_model(run, plan)` returns a `Built` bundle: the `Model`, its
 weight specs, and `init(seed, device)` for random parameters.  One
-device, so no mesh and no shardings; serving never rematerializes, so
-no remat policy (both come with later slices).
+device, so no mesh and no shardings (they come with a later slice).
+The plan's remat axis compiles into `Model.remat` (`_remat_policy`).
+`train_inputs` gives a training batch's shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -12,12 +13,13 @@ from typing import Dict, List
 
 import torch
 
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.cost_model import Decision
 from repro_torch.models.common import attn_geometry
 from repro_torch.models.transformer import Model, build_specs
-from repro_torch.sharding.specs import (WeightSpec, build_param_set,
-                                        plan_layouts)
+from repro_torch.sharding.specs import (ParamSet, WeightSpec,
+                                        build_param_set, plan_layouts,
+                                        saved_activation_names)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -55,9 +57,46 @@ def build_model(run: RunConfig, plan=None) -> Built:
     decisions: Dict[str, Decision] = plan.decisions if plan else {}
     specs = build_specs(cfg, tp)
     geom = attn_geometry(cfg, tp) if cfg.has_attention else None
-    model = Model(cfg=cfg, geom=geom,
-                  pset=plan_layouts(specs, decisions), decisions=decisions,
+    pset = plan_layouts(specs, decisions)
+    model = Model(cfg=cfg, geom=geom, pset=pset, decisions=decisions,
+                  remat=_remat_policy(run, decisions, pset),
                   swa_window=(run.swa_window
                               if run.shape.name == "long_500k"
                               and not cfg.sliding_window else 0))
     return Built(model=model, specs=specs, run=run)
+
+
+def _remat_policy(run: RunConfig, decisions: Dict[str, Decision],
+                  pset: ParamSet) -> bool:
+    """The plan's remat axis as `Model.remat`, as in the JAX package:
+    plans without explicit per-slice bits keep the run's global flag,
+    all-keep plans give False and all-remat plans True.  A selective
+    plan (some activations kept, some recomputed) is refused: its
+    save-only-these-names policy is a later slice (ROADMAP.md section 1,
+    "Selective remat")."""
+    default = run.osdp.env_checkpointing
+    if not decisions or not any(d.remat is not None
+                                for d in decisions.values()):
+        return bool(default)
+    saved, any_remat = saved_activation_names(pset.layouts, default)
+    if not any_remat:
+        return False
+    if not saved:
+        return True
+    raise NotImplementedError(
+        f"selective remat (the plan saves {len(saved)} tagged activations "
+        f"and recomputes the rest) is not ported yet: ROADMAP.md section "
+        f"1, \"Selective remat\"")
+
+
+def train_inputs(cfg: ModelConfig, B: int, S: int,
+                 device="meta") -> Dict[str, torch.Tensor]:
+    """A training batch of the decoder families, tokens and labels (B, S)
+    int32, on `device`: by default the meta device, shapes and dtypes
+    only (the JAX package's ShapeDtypeStructs).  Audio and VLM batches
+    come with those families."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"{cfg.name}: {cfg.family} batches are "
+                                  f"not ported yet")
+    return {k: torch.empty((B, S), dtype=torch.int32, device=device)
+            for k in ("tokens", "labels")}

@@ -1,20 +1,27 @@
-"""Transformer assembly, dense and SSM decoder paths (serving).
+"""Transformer assembly, dense and SSM decoder paths.
 
     dense : x += attn(norm(x));   x += ffn(norm(x))
     ssm   : x += ssd(norm(x))    [x += ffn(norm(x)) where d_ff]
 
 Parameters are stacked over layers, as in the JAX package; its
 `lax.scan` over layers becomes a Python loop over `w[l]` (a view, no
-copy).  The OSDP plan decides per-operator segmentation through
-`sharding.specs`.  MoE, hybrid, VLM and audio families, the training
-forward/loss and remat come with later slices.
+copy; in training over `unbind` views, whose backward stacks the
+layers' gradients once).  The OSDP plan decides per-operator
+segmentation through `sharding.specs` and remat through `Model.remat`
+(a `torch.utils.checkpoint` per layer, or none; a selective plan is
+refused in `models.registry`).  Training runs the dense family
+(`forward`, `loss_fn` with the chunked cross-entropy); SSM training
+waits for an `ssd_scan` backward.  MoE, hybrid, VLM and audio come
+with later slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from functools import partial
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE, SSM, ModelConfig
 from repro_torch.core.cost_model import Decision
@@ -24,9 +31,17 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AttnGeom, attn_geometry, norm,
                                        positions_for)
-from repro_torch.sharding.specs import ParamSet, WeightSpec, seg_matmul
+from repro_torch.sharding.specs import (ParamSet, WeightSpec, differentiable,
+                                       seg_matmul)
 
 LayerParams = Dict[str, torch.Tensor]
+
+# the chunked cross-entropy of `loss_fn` (the JAX package's inline
+# 512 and 2**27): the sequence is cut into CE_CHUNK positions when S is
+# a multiple above it and S * padded_vocab >= CE_MIN_ELEMS, so the fp32
+# (B, S, V) logits never materialize whole
+CE_CHUNK = 512
+CE_MIN_ELEMS = 2 ** 27
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -133,6 +148,9 @@ class Model:
     geom: Optional[AttnGeom]     # None when the model has no attention
     pset: ParamSet
     decisions: Dict[str, Decision]
+    # True = a checkpoint per layer (its activations recomputed in the
+    # backward), False = keep everything; see models.registry
+    remat: bool = True
     swa_window: int = 0          # override window for long-context decode
 
     # -- helpers ------------------------------------------------------------
@@ -163,19 +181,20 @@ class Model:
         x = norm(cfg, x, params["final_norm/scale"],
                  params.get("final_norm/bias"))
         if cfg.tie_embeddings:
-            # the kernel takes a row-major (K, N) weight: transposing the
-            # tied embedding costs one (d, V) copy per call
+            # x @ emb^T: the kernel reads the (V, d) embedding as stored
             emb = params["embed/tok"]
-            logits = ops.split_matmul(
-                x.reshape(-1, x.shape[-1]).contiguous(),
-                emb.t().contiguous()).reshape(*x.shape[:-1], emb.shape[0])
+            x2 = x.reshape(-1, x.shape[-1]).contiguous()
+            logits = (ops.matmul(x2, emb, transpose_w=True)
+                      if differentiable(x2, emb)
+                      else ops.split_matmul(x2, emb, transpose_w=True))
+            logits = logits.reshape(*x.shape[:-1], emb.shape[0])
         else:
             logits = seg_matmul(x, params, self.pset, "head/out", 0)
-        # mask padded vocab entries
+        # mask padded vocab entries: in place on the product's fresh
+        # output, so only the padded columns are written (a masked_fill
+        # writes a second copy of the whole (rows, V) block)
         if cfg.padded_vocab != cfg.vocab_size:
-            pad = torch.arange(cfg.padded_vocab,
-                               device=logits.device) >= cfg.vocab_size
-            logits = logits.masked_fill(pad, attn_mod.NEG_INF)
+            logits[..., cfg.vocab_size:] = attn_mod.NEG_INF
         return logits
 
     def _ffn(self, lp, x):
@@ -183,6 +202,81 @@ class Model:
             return x
         h = self._norm(lp, x, "layers/ffn/norm")
         return x + ffn_mod.ffn_forward(self.cfg, self.pset, lp, h)
+
+    # -- training -------------------------------------------------------------
+    def _checkpoint(self, body):
+        """A layer body under the plan's remat: a checkpoint or none."""
+        if self.remat:
+            return partial(checkpoint, body, use_reentrant=False)
+        return body
+
+    def _block(self, x: torch.Tensor, lp: LayerParams,
+               positions: torch.Tensor, window: int) -> torch.Tensor:
+        cfg = self.cfg
+        h = self._norm(lp, x, "layers/attn/norm")
+        x = x + attn_mod.attn_forward(cfg, self.geom, self.pset, lp, h,
+                                      positions, window=window)
+        return self._ffn(lp, x)
+
+    def forward(self, params: Dict[str, torch.Tensor],
+                batch: Dict[str, torch.Tensor], *,
+                window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward -> (hidden states (B,S,d), aux loss).  A
+        plan's uniform operator split (granularity > 1) runs unchunked:
+        the same products up to summation order (chunked FFN splitting,
+        a memory device, is not ported yet)."""
+        cfg = self.cfg
+        if cfg.family != DENSE:
+            raise NotImplementedError(
+                f"{cfg.name}: training runs the dense family; SSM training "
+                f"needs the ssd_scan backward (not ported yet)")
+        x = self.embed(params, batch)
+        positions = positions_for(cfg, batch, x.shape[1])
+        win = window or cfg.sliding_window
+        layers = {k: v.unbind(0) for k, v in self._layers(params).items()}
+        body = self._checkpoint(self._block)
+        for l in range(cfg.n_layers):
+            x = body(x, {k: v[l] for k, v in layers.items()}, positions,
+                     win)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _ce_block(self, params, x_blk, lab_blk):
+        """Summed NLL and valid count of one (B, c, d) block."""
+        logits = self.logits(params, x_blk)
+        valid = lab_blk >= 0
+        lab = torch.where(valid, lab_blk, 0).long()
+        # in fp32, as the JAX package's astype; the cast happens inside
+        # the softmax, so the fp32 logits are never stored
+        logp = torch.log_softmax(logits, -1, dtype=torch.float32)
+        nll = -logp.gather(-1, lab[..., None])[..., 0]
+        return (torch.where(valid, nll, 0.0).sum(),
+                valid.sum().to(torch.float32))
+
+    def loss_fn(self, params: Dict[str, torch.Tensor],
+                batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+        """Mean next-token cross-entropy (+ 0.01 aux / L) and metrics,
+        as the JAX package's `loss_fn`; with the chunked vocab projection
+        (`CE_CHUNK`), each chunk's logits under a checkpoint."""
+        cfg = self.cfg
+        x, aux = self.forward(params, batch)
+        labels = batch["labels"]
+        S = x.shape[1]
+        if (S % CE_CHUNK == 0 and S > CE_CHUNK
+                and S * cfg.padded_vocab >= CE_MIN_ELEMS):
+            head = {k: v for k, v in params.items()
+                    if not k.startswith("layers/")}
+            nll_sum = n_valid = torch.zeros((), device=x.device)
+            for c0 in range(0, S, CE_CHUNK):
+                bs, bn = checkpoint(self._ce_block, head,
+                                    x[:, c0:c0 + CE_CHUNK],
+                                    labels[:, c0:c0 + CE_CHUNK],
+                                    use_reentrant=False)
+                nll_sum, n_valid = nll_sum + bs, n_valid + bn
+        else:
+            nll_sum, n_valid = self._ce_block(params, x, labels)
+        ce = nll_sum / torch.clamp(n_valid, min=1.0)
+        loss = ce + 0.01 * aux / max(1, cfg.n_layers)
+        return loss, {"ce": ce, "aux": aux, "tokens": n_valid}
 
     # -- serving --------------------------------------------------------------
     def init_caches(self, batch: int, cache_len: int,

@@ -1,0 +1,143 @@
+"""Training loop: the JAX package's `train/loop.py` on one device.
+
+`make_train_step(built, ...)` returns (step_fn, init_fn), as there;
+PyTorch runs eagerly, so step_fn is a plain function: value and grads
+(microbatched: gradients accumulated in fp32 and averaged), the
+warmup-cosine scale, and the in-place AdamW update.  Every product and
+attention of the forward and backward goes through the port's kernels
+(`kernels.ops`): on a card the CUDA kernels, on the CPU their plain
+versions.
+
+Not here yet: checkpointing (`ckpt_dir` raises; ROADMAP section 1 item
+2) and the gradient bucketing of `OverlapConfig` (`_bucket_grads`, an
+XLA scheduling device that is identity on values; ROADMAP section 1
+item 6).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.data.synthetic import Dataset
+from repro_torch.models.registry import Built, resolve_device
+from repro_torch.optim import (AdamWConfig, AdamWState, apply_update,
+                               init_state, warmup_cosine)
+
+
+def loss_and_grads(model, params: Dict[str, torch.Tensor],
+                   batch: Dict[str, torch.Tensor], microbatch: int = 0):
+    """(loss, metrics, grads) of `model.loss_fn`; with `microbatch` n > 1
+    the batch is cut into n row blocks whose gradients are summed in
+    fp32 and averaged, as the JAX package's scan does."""
+    keys = list(params)
+    leaves = [params[k].requires_grad_(True) for k in keys]
+
+    def one(b):
+        loss, metrics = model.loss_fn(params, b)
+        grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                dict(zip(keys, grads)))
+
+    if microbatch <= 1:
+        return one(batch)
+    n = microbatch
+    per = next(iter(batch.values())).shape[0] // n
+    acc_loss = torch.zeros((), device=leaves[0].device)
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in params.items()}
+    metrics = {}
+    for i in range(n):
+        loss, metrics, grads = one({k: v[i * per:(i + 1) * per]
+                                    for k, v in batch.items()})
+        acc_loss = acc_loss + loss
+        for k, g in grads.items():
+            acc[k] += g
+        del grads
+    return acc_loss / n, metrics, {k: g / n for k, g in acc.items()}
+
+
+def make_train_step(built: Built, opt_cfg: Optional[AdamWConfig] = None,
+                    total_steps: int = 10_000, warmup: int = 100
+                    ) -> Tuple[Callable, Callable]:
+    """(step_fn, init_fn): step_fn(params, opt_state, batch) -> (params,
+    opt_state, metrics), updating params and opt_state in place;
+    init_fn(seed, device) -> (params, opt_state)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    model = built.model
+    micro = built.run.microbatch
+
+    def step(params, opt_state: AdamWState, batch):
+        loss, metrics, grads = loss_and_grads(model, params, batch, micro)
+        lr_scale = warmup_cosine(opt_state.step + 1, warmup, total_steps)
+        params, opt_state, opt_metrics = apply_update(
+            opt_cfg, params, grads, opt_state, lr_scale)
+        return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
+
+    def init(seed: int = 0, device=None):
+        params = built.init(seed, device)
+        return params, init_state(params)
+
+    return step, init
+
+
+@dataclass
+class TrainResult:
+    steps: int
+    losses: list
+    tokens_per_s: float
+    final_metrics: Dict[str, float] = field(default_factory=dict)
+    step_ms: list = field(default_factory=list)   # host clock, synced
+    grad_norms: list = field(default_factory=list)
+
+
+def train(built: Built, n_steps: int, *, seed: int = 0,
+          opt_cfg: Optional[AdamWConfig] = None,
+          ckpt_dir: Optional[str] = None, log_every: int = 10,
+          warmup: int = 100,
+          total_steps: int = 10_000, device=None,
+          params: Optional[Dict[str, torch.Tensor]] = None
+          ) -> TrainResult:
+    """Single-device training loop on the synthetic pipeline, as the
+    JAX package's `train` without checkpoints.  `device` defaults to the
+    card (raising without one); `params` starts from given weights (the
+    parity tests carry the JAX package's across) instead of
+    `built.init(seed)`.  Each step's host time is taken after the loss
+    is read back, so the device has finished it."""
+    if ckpt_dir:
+        raise NotImplementedError(
+            "checkpointing is not ported yet (ROADMAP section 1 item 2: "
+            "checkpoint/io.py)")
+    dev = resolve_device(device)
+    step_fn, init_fn = make_train_step(built, opt_cfg, warmup=warmup,
+                                       total_steps=total_steps)
+    if params is None:
+        params, opt_state = init_fn(seed, dev)
+    else:
+        params = {k: v.detach().to(dev).clone() for k, v in params.items()}
+        opt_state = init_state(params)
+    ds = Dataset(built.run.model, built.run.shape, seed=seed)
+    losses, step_ms, grad_norms = [], [], []
+    tokens = 0
+    metrics: Dict = {}
+    t0 = time.perf_counter()
+    for s in range(n_steps):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in ds.global_batch(s).items()}
+        tokens += int(batch["labels"].numel())
+        ts = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss = float(metrics["loss"])
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        losses.append(loss)
+        grad_norms.append(float(metrics["grad_norm"]))
+        if log_every and (s % log_every == 0 or s == n_steps - 1):
+            print(f"step {s:5d} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f}")
+    dt = time.perf_counter() - t0
+    return TrainResult(n_steps, losses, tokens / dt,
+                       {k: float(v) for k, v in metrics.items()}, step_ms,
+                       grad_norms)

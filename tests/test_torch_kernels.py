@@ -155,7 +155,10 @@ def test_attention_ref_matches_jax_oracle():
 # --- dispatch ---------------------------------------------------------------
 
 KERNELS = ["split_matmul", "flash_attention", "ssd_scan"]
-NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+# every counter `ops.launch_counts` keeps, the backward kernels' too
+NO_LAUNCHES = dict.fromkeys(KERNELS + ["split_matmul_dgrad",
+                                       "split_matmul_wgrad",
+                                       "flash_attention_bwd"], 0)
 
 
 def _dispatch_case(name, rng):

@@ -155,6 +155,37 @@ def test_decode_matches_jax(name, vector_t):
                                   np.asarray(jc["attn"]["pos"]))
 
 
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_decode_past_a_rolling_cache_matches_jax(name):
+    """Decode past a prompt-length cache: an 8-token prompt prefilled
+    with the default cache_len (8 slots), then 12 teacher-forced steps,
+    each overwriting the oldest slot; logits and the slots' positions
+    against JAX."""
+    jb, jp, tb, tp = _pair(name)
+    cfg = tb.model.cfg
+    B, S = 2, 8
+    toks = _prompts(cfg, B, S, seed=6)
+    jl, jc = jax.jit(lambda p, b: jb.model.prefill(p, b))(
+        jp, {"tokens": jnp.asarray(toks)})
+    _, tc = tb.model.prefill(tp, {"tokens": torch.from_numpy(toks)})
+    assert tc["attn"]["k"].shape[2] == jc["attn"]["k"].shape[2] == S
+    jstep = jax.jit(jb.model.decode_step)
+    tok = np.array(jnp.argmax(jl[:, -1, :cfg.vocab_size], -1),
+                   np.int32)[:, None]
+    for i in range(12):
+        t = S + i
+        jl, jc = jstep(jp, jc, jnp.asarray(tok), jnp.int32(t))
+        tl, tc = tb.model.decode_step(tp, tc, torch.from_numpy(tok), t)
+        np.testing.assert_allclose(_np(tl)[..., :cfg.vocab_size],
+                                   _np(jl)[..., :cfg.vocab_size], **TOL)
+        np.testing.assert_array_equal(tc["attn"]["pos"].numpy(),
+                                      np.asarray(jc["attn"]["pos"]))
+        tok = np.array(jnp.argmax(jl[:, 0, :cfg.vocab_size], -1),
+                       np.int32)[:, None]
+    # the last 8 positions, each in slot t % 8
+    assert sorted(tc["attn"]["pos"][0, 0].tolist()) == list(range(12, 20))
+
+
 def test_mixed_plan_decode_matches_jax():
     jb, jp, tb, tp = _pair("phi4", True)
     cfg = tb.model.cfg
@@ -200,8 +231,9 @@ def test_cpu_model_path_launches_no_kernel():
     ops.reset_launch_counts()
     tb.model.prefill(tp, {"tokens": torch.from_numpy(
         _prompts(tb.model.cfg, 1, 8))})
-    assert ops.launch_counts() == {"split_matmul": 0, "flash_attention": 0,
-                                   "ssd_scan": 0}
+    counts = ops.launch_counts()
+    assert {"split_matmul", "flash_attention", "ssd_scan"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_init_is_seeded_and_segmented(monkeypatch):

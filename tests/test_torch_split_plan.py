@@ -3,9 +3,12 @@
 `repro_torch.kernels.split_matmul.plan_launch` is pure Python: it picks
 the CUDA design for a product (weight streaming with split-K for decode
 rows, TMA + wgmma for prefill rows, the general first-version kernel
-only where neither can run), its tile and its K split.  Here it is
-checked at every product of the two served models, read from their
-configurations, and at the cases that force the general kernel.  The
+only where neither can run), its tile and its K split, for each
+operand layout: "nn" (the forward), "nt" (the backward's dgrad and the
+tied head's forward) and "tn" (wgrad).  Here it is checked at every
+product of the two served models and of qwen1.5-0.5b's training step,
+read from their configurations, and at the cases that force the
+general kernel.  The
 order the kernels sum in (fp32 partials over whole K slices, ranges
 summed in order) is `ref.split_matmul_splitk_ref`; it is held against
 the Pallas `split_matmul` in interpret mode, as `tests/test_kernels.py`
@@ -27,8 +30,9 @@ from repro.kernels import ops as jops
 from repro_torch.configs import get_arch
 from repro_torch.convert import to_torch
 from repro_torch.kernels import ref
-from repro_torch.kernels.split_matmul import (N_SM, STREAM_BNS,
-                                               STREAM_MAX_M, plan_launch)
+from repro_torch.kernels.split_matmul import (BWD_KSLICE, N_SM,
+                                               STREAM_BNS, STREAM_MAX_M,
+                                               plan_launch)
 
 BK = 512                       # the serve path's K slice (ops default)
 
@@ -180,3 +184,42 @@ def test_split_k_order_is_fixed():
     assert torch.equal(a, b)
     np.testing.assert_allclose(a.numpy(), (x @ w).numpy(), atol=2e-4,
                                rtol=1e-3)
+
+
+TRAIN_ROWS = 8 * 4096          # qwen1.5-0.5b's step: batch 8 x seq 4096
+CE_ROWS = 8 * 512              # one chunk of the chunked cross-entropy
+
+
+@pytest.mark.parametrize("name,K,N",
+                         _products("qwen1.5-0.5b")[0],
+                         ids=lambda v: str(v))
+def test_backward_plans_at_qwen_training_shapes(name, K, N):
+    """Every backward product of the training step takes the wgmma
+    design (never the general kernel), with K cut at multiples of 64:
+    dgrad dy (rows, N) . w^T ("nt") and wgrad x^T . dy ("tn", contracted
+    over the rows)."""
+    for M_, N_, K_, layout in ((TRAIN_ROWS, K, N, "nt"),
+                               (K, N, TRAIN_ROWS, "tn")):
+        plan = plan_launch(M_, N_, K_, BWD_KSLICE, layout=layout)
+        assert plan.variant == "wgmma", plan
+        assert plan.kslice % 64 == 0
+        spans = plan.k_ranges(K_)
+        assert spans[0][0] == 0 and spans[-1][1] == K_
+        assert all(a % 64 == 0 for a, _ in spans)
+
+
+def test_head_plans_take_the_transposed_layouts():
+    """The tied head at one CE chunk: the forward x emb^T reads the
+    (V, d) embedding as stored ("nt"), its dgrad is dy emb ("nn") and
+    its wgrad dy^T x ("tn"), all on wgmma; the backward layouts never
+    stream, and fall back to the strided kernel only for what wgmma
+    cannot take."""
+    _, (_, d, Vp) = _products("qwen1.5-0.5b")
+    fwd = plan_launch(CE_ROWS, Vp, d, BK, layout="nt")
+    dgrad = plan_launch(CE_ROWS, d, Vp, BWD_KSLICE)
+    wgrad = plan_launch(Vp, d, CE_ROWS, BWD_KSLICE, layout="tn")
+    assert {fwd.variant, dgrad.variant, wgrad.variant} == {"wgmma"}
+    assert plan_launch(8, 1024, 1024, BK, layout="nt").variant == "wgmma"
+    assert plan_launch(5, 19, 37, BK, layout="tn").variant == "general"
+    assert plan_launch(64, 72, 80, BK, dtype="float32",
+                       layout="nt").variant == "general"
