@@ -19,7 +19,8 @@ the final line is not printed):
    first-version kernel); time kernel, plain version and one PyTorch
    library call where one computes the same function (device time from
    a CUDA graph of 20 calls, and the eager time with the host's launch
-   cost); then the kernels' other options (f32, ragged shapes, each
+   cost, of the kernel's wrapper and of the model path's differentiable
+   entry `ops.matmul` / `ops.attention` under no_grad); then the kernels' other options (f32, ragged shapes, each
    matmul design at its edge cases, windows, an initial state, hymba-1.5b's
    SSD shapes, the scan's chunk counts and lengths...); for `ssd_scan`
    also the device time of each of its three passes, a bit-identical
@@ -36,18 +37,20 @@ the final line is not printed):
    residual stream's size and its reordering divergence by layer; a
    second prefill of the prompt must give identical logits (split-K
    sums its partials in a fixed order, with no atomics);
-5. the backward kernels at qwen1.5-0.5b's training shapes (B*S =
-   32,768 rows): `split_matmul_dgrad` and `split_matmul_wgrad` at every
-   layer product (q/k/v/o, w13, w2) and at the tied head's CE chunk
-   (8 x 512 rows against the 152,064-row embedding, whose forward takes
-   the "nt" layout, checked too), each against the plain version summed
-   in the plan's split-K order; the `flash_attention` backward at
-   (1, 4096, 16, 1, 64), causal, with the forward's logsumexp; each timed
-   as in phase 2 beside its bound and the library call (`torch.matmul`;
-   the backward of `scaled_dot_product_attention`, eager); then the
-   backward's other options (G 3 at hd 128, window 1024, ragged S and
-   T, an offset, non-causal, f32; both matmul layouts at ragged and odd
-   sizes in bf16 and f32), every repeated backward bit-identical;
+5. the kernels at qwen1.5-0.5b's training shapes (B*S = 32,768 rows):
+   the `split_matmul` forward ("nn") at every layer product (q/k/v/o,
+   w13, w2), and `split_matmul_dgrad` and `split_matmul_wgrad` there and
+   at the tied head's CE chunk (8 x 512 rows against the 152,064-row
+   embedding, whose forward takes the "nt" layout, checked too), each
+   backward against the plain version summed in the plan's split-K
+   order; `flash_attention` forward (output and logsumexp) and backward
+   at (8, 4096, 16, 1, 64), causal; each timed as in phase 2 beside its
+   bound and the library call (`torch.matmul`; SDPA's flash forward and
+   its backward op, both by CUDA-graph replay); then the backward's
+   other options (G 3 at hd 128, window 1024, ragged S and T, an
+   offset, non-causal, a window of 17 at S 45; both matmul layouts at
+   ragged and odd sizes in bf16 and f32), every repeated backward
+   bit-identical;
 6. train qwen1.5-0.5b at full width and depth: plan it with `osdp` for
    train_4k at global batch 8 on a 1x1 mesh with 64 GiB and the h100-sxm
    preset (checkpointing "selective": the search co-decides remat,
@@ -236,7 +239,7 @@ def _graph_ms(torch, fn, args_list, iters=20) -> float:
 # --- phase 2: kernels against their plain versions --------------------------
 
 def check_split_matmul(torch, M, K, N, gen):
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import split_matmul as sm
     dev = "cuda"
     x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
@@ -259,12 +262,15 @@ def check_split_matmul(torch, M, K, N, gen):
     args = [(x, w) for w in ws]
     ms = _graph_ms(torch, sm.split_matmul, args)
     eager_ms = _time_ms(torch, sm.split_matmul, args)
+    with torch.no_grad():      # the model path's entry, as serving calls it
+        path_eager_ms = _time_ms(torch, ops.matmul, args)
     plain_ms = _time_ms(torch, ref.split_matmul_ref, args, iters=5)
     lib_ms = _graph_ms(torch, torch.matmul, args)
     flops = 2.0 * M * N * K
     nbytes = 2.0 * (M * K + K * N + M * N)
     return dict(shape=[M, K, N], max_abs_err=err.max().item(), ms=ms,
-                eager_ms=eager_ms, variant=plan.variant, bn=plan.bn,
+                eager_ms=eager_ms, path_eager_ms=path_eager_ms,
+                variant=plan.variant, bn=plan.bn,
                 splits=plan.splits, blocks=plan.blocks,
                 plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BW),
@@ -272,16 +278,16 @@ def check_split_matmul(torch, M, K, N, gen):
                 > nbytes / PEAK_BW else "bytes")
 
 
-def check_flash(torch, S, gen, KV=8, G=3, hd=128):
+def check_flash(torch, S, gen, KV=8, G=3, hd=128, B=1):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     dev = "cuda"
-    q = torch.randn(1, S, KV, G, hd, generator=gen, device=dev
+    q = torch.randn(B, S, KV, G, hd, generator=gen, device=dev
                     ).to(torch.bfloat16)
-    k = torch.randn(1, S, KV, hd, generator=gen, device=dev
+    k = torch.randn(B, S, KV, hd, generator=gen, device=dev
                     ).to(torch.bfloat16)
-    v = torch.randn(1, S, KV, hd, generator=gen, device=dev
+    v = torch.randn(B, S, KV, hd, generator=gen, device=dev
                     ).to(torch.bfloat16)
     o = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -289,8 +295,8 @@ def check_flash(torch, S, gen, KV=8, G=3, hd=128):
     err = (o.float() - o_ref.float()).abs()
     bad = err > KERNEL_TOL + KERNEL_TOL * o_ref.float().abs()
     if not torch.isfinite(o.float()).all() or bad.any():
-        _fail(f"flash_attention S={S}: max error {err.max().item()} "
-              f"beyond {KERNEL_TOL} abs+rel")
+        _fail(f"flash_attention {(B, S, KV, G, hd)}: max error "
+              f"{err.max().item()} beyond {KERNEL_TOL} abs+rel")
 
     def kern(q, k, v):
         return fa.flash_attention(q, k, v, causal=True)
@@ -300,22 +306,28 @@ def check_flash(torch, S, gen, KV=8, G=3, hd=128):
 
     # the library yardstick in its own (B, H, S, hd) layout, kv heads
     # repeated per group; the layout change is not timed
-    qh = q.reshape(1, S, KV * G, hd).transpose(1, 2).contiguous()
+    qh = q.reshape(B, S, KV * G, hd).transpose(1, 2).contiguous()
     kh = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     vh = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
+    def path(q, k, v):
+        return ops.attention(q, k, v, causal=True)
+
     ms = _graph_ms(torch, kern, [(q, k, v)])
     eager_ms = _time_ms(torch, kern, [(q, k, v)])
+    with torch.no_grad():      # the model path's entry, as serving calls it
+        path_eager_ms = _time_ms(torch, path, [(q, k, v)])
     plain_ms = _time_ms(torch, plain, [(q, k, v)], iters=5)
     lib_ms = _graph_ms(torch, sdpa, [(qh, kh, vh)])
     H = KV * G
-    flops = 4.0 * hd * H * S * (S + 1) / 2      # causal: s+1 keys per row
+    flops = 4.0 * hd * B * H * S * (S + 1) / 2  # causal: s+1 keys per row
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-    return dict(shape=[1, S, KV, G, hd], max_abs_err=err.max().item(),
-                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+    return dict(shape=[B, S, KV, G, hd], max_abs_err=err.max().item(),
+                ms=ms, eager_ms=eager_ms, path_eager_ms=path_eager_ms,
+                plain_ms=plain_ms,
                 library_ms=lib_ms,
                 bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BW),
                 bound_by="operations" if flops / PEAK_BF16
@@ -963,8 +975,9 @@ def _flash_bwd_case(torch, gen, B, S, T, KV, G, hd, kw, dtype, tol):
     from repro_torch.kernels import ref
     args = _flash_bwd_inputs(torch, gen, B, S, T, KV, G, hd, dtype, kw)
     q, k, v, o, lse, do = args
-    _, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     what = f"flash_attention_bwd {(B, S, T, KV, G, hd)} {kw} {dtype}"
+    _grad_err(torch, o, o_ref, f"{what}: forward output", tol)
     if (lse - lse_ref).abs().max().item() > 1e-3:
         _fail(f"{what}: forward logsumexp off the plain one")
     got = fa.flash_attention_bwd(*args, **kw)
@@ -978,9 +991,26 @@ def _flash_bwd_case(torch, gen, B, S, T, KV, G, hd, kw, dtype, tol):
     return err, args
 
 
-def check_flash_bwd(torch, gen, B=1, S=4096, KV=16, G=1, hd=64):
-    """The backward at the training shape of one sequence, causal."""
-    import torch.nn.functional as F
+def _sdpa_bwd(torch, q, k, v, do):
+    """The library yardstick for the backward: SDPA's flash backward op
+    alone, on (B, H, S, hd) copies (kv heads repeated per group), as a
+    call that a CUDA graph can capture."""
+    H = q.shape[2] * q.shape[3]
+    B, S, hd = q.shape[0], q.shape[1], q.shape[-1]
+    G = q.shape[3]
+    qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(G, 2).transpose(1, 2).contiguous()
+    doh = do.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed, off, _ = \
+        aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        doh, qh, kh, vh, out, lse, cq, ck, mq, mk, 0.0, True, seed, off)
+
+
+def check_flash_bwd(torch, gen, B, S=4096, KV=16, G=1, hd=64):
+    """The backward at the training step's shape, causal."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     kw = dict(causal=True)
@@ -988,14 +1018,7 @@ def check_flash_bwd(torch, gen, B=1, S=4096, KV=16, G=1, hd=64):
                                 torch.bfloat16, KERNEL_TOL)
     q, k, v, o, lse, do = args
     H = KV * G
-    qh = q.reshape(B, S, H, hd).transpose(1, 2).detach().requires_grad_()
-    kh = k.repeat_interleave(G, 2).transpose(1, 2).detach().requires_grad_()
-    vh = v.repeat_interleave(G, 2).transpose(1, 2).detach().requires_grad_()
-    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    doh = do.reshape(B, S, H, hd).transpose(1, 2).contiguous()
-    # the library yardstick: the backward of SDPA alone, eager
-    lib = lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                      retain_graph=True)
+    lib = _sdpa_bwd(torch, q, k, v, do)
     pairs = B * H * S * (S + 1) / 2            # causal (query, key) pairs
     flops = 10.0 * hd * pairs                  # q.k, dO.v, P^T dO, dS k, dS^T q
     nbytes = (2.0 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel())
@@ -1008,7 +1031,7 @@ def check_flash_bwd(torch, gen, B=1, S=4096, KV=16, G=1, hd=64):
                     *args, **kw), [()]),
                 plain_ms=_time_ms(torch, lambda: ref.flash_attention_bwd_ref(
                     *args, **kw), [()], iters=2),
-                library_ms=_time_ms(torch, lib, [()]),
+                library_ms=_graph_ms(torch, lib, [()]),
                 fwd_lse_ms=_graph_ms(torch, lambda: fa.flash_attention(
                     *args[:3], return_lse=True, **kw), [()]),
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -1023,8 +1046,9 @@ FLASH_BWD_CASES = (
     (2, 333, 333, 2, 1, 64, True, 0, 0, "bfloat16", "ragged S and T"),
     (1, 100, 300, 1, 3, 128, True, 0, 200, "bfloat16", "T > S, an offset"),
     (2, 130, 300, 2, 1, 64, False, 0, 0, "bfloat16", "non-causal, T != S"),
-    (1, 45, 45, 2, 1, 64, True, 17, 0, "float32", "f32, a window"),
-    (2, 37, 50, 2, 3, 128, False, 0, 0, "float32", "f32, non-causal"),
+    (1, 45, 45, 2, 1, 64, True, 17, 0, "bfloat16", "a window of 17, S 45"),
+    (2, 37, 50, 2, 3, 128, False, 0, 0, "bfloat16",
+     "G 3, hd 128, non-causal, S 37 T 50"),
 )
 MATMUL_GRAD_CASES = (
     # (role, M, K, N, transpose_w, what)
@@ -1040,15 +1064,15 @@ MATMUL_GRAD_CASES = (
 
 def check_backward_options(torch, gen) -> int:
     """The backward kernels off the training path, each against its plain
-    version: flash G/hd/window/offset/non-causal/f32, matmul layouts at
-    ragged and odd sizes (bf16) and in f32."""
+    version: flash G/hd/window/offset/non-causal (bf16, the only type
+    its backward takes), matmul layouts at ragged and odd sizes in bf16
+    and f32."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import split_matmul as sm
     for B, S, T, KV, G, hd, causal, window, q_off, dt, _ in FLASH_BWD_CASES:
-        dtype = getattr(torch, dt)
         _flash_bwd_case(torch, gen, B, S, T, KV, G, hd,
                         dict(causal=causal, window=window, q_offset=q_off),
-                        dtype, KERNEL_TOL if dt == "bfloat16" else 1e-4)
+                        getattr(torch, dt), KERNEL_TOL)
     for role, M, K, N, tw, what in MATMUL_GRAD_CASES:
         for dtype, tol in ((torch.bfloat16, KERNEL_TOL), (torch.float32,
                                                           1e-4)):
@@ -1466,9 +1490,11 @@ def main(argv=None) -> int:
                       f"{'/'.join(map(str, r['blocks']))}, workspace "
                       f"{r['workspace_bytes'] / 1e6:.2f} MB]"
                       if "head_group" in r else "")
+            path = (f", through ops {r['path_eager_ms']:.4f}"
+                    if "path_eager_ms" in r else "")
             print(f"  {name:15s} {str(r['shape']):26s}{design} err {err} "
                   f"(tol {tol}) kernel {r['ms']:.4f} ms (eager "
-                  f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+                  f"{r['eager_ms']:.4f}{path}), plain {r['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
     report["split_matmul"] = {ARCHS[0]: mm, ARCHS[1]: mm_mam}
@@ -1488,13 +1514,17 @@ def main(argv=None) -> int:
           f"the plain versions")
     torch.cuda.empty_cache()
 
-    # 5. the backward kernels at the training step's shapes -------------------
+    # 5. the kernels at the training step's shapes ----------------------------
     qw = get_arch(TRAIN_ARCH)
     rows, head_rows = TRAIN_BATCH * 4096, TRAIN_BATCH * 512
     dq, ffq = qw.d_model, qw.d_ff
+    kv_heads, group = qw.n_kv_heads, qw.n_heads // qw.n_kv_heads
     bwd = {"split_matmul_dgrad": [], "split_matmul_wgrad": []}
+    mm_train, fl_train = [], [check_flash(torch, 4096, gen, kv_heads, group,
+                                          qw.resolved_head_dim, TRAIN_BATCH)]
     for K, N in ((dq, qw.n_heads * qw.resolved_head_dim), (dq, 2 * ffq),
                  (ffq, dq)):
+        mm_train.append(check_split_matmul(torch, rows, K, N, gen))
         for role in ("dgrad", "wgrad"):
             bwd[f"split_matmul_{role}"].append(
                 check_matmul_grad(torch, role, rows, K, N, gen))
@@ -1505,9 +1535,9 @@ def main(argv=None) -> int:
     head_fwd = check_matmul_grad(torch, "forward", head_rows, dq,
                                  qw.padded_vocab, gen, transpose_w=True)
     bwd["flash_attention_bwd"] = [check_flash_bwd(
-        torch, gen, 1, 4096, qw.n_kv_heads, qw.n_heads // qw.n_kv_heads,
-        qw.resolved_head_dim)]
-    for name, rows_ in bwd.items():
+        torch, gen, TRAIN_BATCH, 4096, kv_heads, group, qw.resolved_head_dim)]
+    fwd = {"split_matmul": mm_train, "flash_attention": fl_train}
+    for name, rows_ in list(fwd.items()) + list(bwd.items()):
         for r in rows_ + ([head_fwd] if name == "split_matmul_wgrad" else []):
             lib = f"{r['library_ms']:.4f} ms"
             design = (f" [{r['variant']} bn {r['bn']} x {r['splits']} "
@@ -1521,6 +1551,7 @@ def main(argv=None) -> int:
                   f"library {lib}, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
     report.update(bwd)
+    report["train_forward"] = fwd
     report["split_matmul_head_nt"] = head_fwd
     n_bwd = check_backward_options(torch, gen)
     print(f"  backward options: {n_bwd} cases off the training path ("
@@ -1547,6 +1578,11 @@ def main(argv=None) -> int:
     def launches(name):
         return sum(s["launches"][name] for s in paths.values())
 
+    # every path shape each kernel was checked and timed at
+    checked = {"split_matmul": mm + mm_mam + mm_train + [head_fwd],
+               "flash_attention": fl + fl_train, "ssd_scan": ssd,
+               **bwd}
+
     def entry(name, r):
         src, replaces = SOURCES[name]
         return dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -1557,8 +1593,12 @@ def main(argv=None) -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     shape=r["shape"], eager_ms=r["eager_ms"],
-                    **{k: r[k] for k in ("variant", "bn", "splits")
-                       if k in r})
+                    **{k: r[k] for k in ("variant", "bn", "splits",
+                                         "path_eager_ms") if k in r},
+                    shapes=[{k: c[k] for k in (
+                        "shape", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")}
+                        for c in checked[name]])
 
     # representative shapes: the decode head product, the full prompt
     kernels = [entry("split_matmul", mm[-1]),

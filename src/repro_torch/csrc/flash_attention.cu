@@ -483,11 +483,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 // one tile at a time, double-buffering only its copies.
 // bf16: mma.sync m16n8k16 with fp32 accumulators, dS and P rounded to
 // bf16 as the A operands of the second products (the forward rounds P
-// the same way).  float32: CUDA cores, fp32 throughout.
+// the same way).  bf16 only: training on the card is bf16, and the
+// wrapper refuses float32.
 
-template <typename T>
-__global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
-                                     const T* __restrict__ dout,
+__global__ void flash_bwd_dot_kernel(const bf16* __restrict__ o,
+                                     const bf16* __restrict__ dout,
                                      float* __restrict__ dsum,
                                      long long rows, int hd) {
   const int lane = threadIdx.x & 31;
@@ -496,15 +496,8 @@ __global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
   if (row >= rows) return;
   float acc = 0.0f;
   for (int d = lane; d < hd; d += 32) {
-    float a, b;
-    if constexpr (sizeof(T) == 2) {
-      a = __bfloat162float(o[row * hd + d]);
-      b = __bfloat162float(dout[row * hd + d]);
-    } else {
-      a = o[row * hd + d];
-      b = dout[row * hd + d];
-    }
-    acc = fmaf(a, b, acc);
+    acc = fmaf(__bfloat162float(o[row * hd + d]),
+               __bfloat162float(dout[row * hd + d]), acc);
   }
   acc = warp_sum(acc);
   if (lane == 0) dsum[row] = acc;
@@ -860,201 +853,6 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// --- float32 backward: CUDA cores -----------------------------------------------
-
-// dq: 32 rows a block (8 a warp), one key a lane, as the forward
-template <int HD>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dsum,
-                        const float* __restrict__ dout,
-                        float* __restrict__ dq, int S, int T_, int KV, int G,
-                        int causal, int window, int q_offset, float scale) {
-  constexpr int PER_LANE = HD / 32;
-  extern __shared__ float fsmem[];
-  float* qs = fsmem;                    // (ROWS, HD)
-  float* dos = qs + ROWS * HD;          // (ROWS, HD)
-  float* ks = dos + ROWS * HD;          // (TK, HD + 1)
-  float* vs = ks + TK * (HD + 1);       // (TK, HD + 1)
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int b = blockIdx.y / KV, h = blockIdx.y % KV;
-  const int n_rows = S * G;
-  const int row0 = blockIdx.x * ROWS;
-  for (int e = tid; e < ROWS * HD; e += WARPS * 32) {
-    const int r = e / HD, d = e % HD, i = row0 + r;
-    float qv = 0.0f, gv = 0.0f;
-    if (i < n_rows) {
-      const size_t at =
-          ((((size_t)b * S + i / G) * KV + h) * G + i % G) * HD + d;
-      qv = q[at];
-      gv = dout[at];
-    }
-    qs[e] = qv;
-    dos[e] = gv;
-  }
-  const int last_row = min(n_rows - 1, row0 + ROWS - 1);
-  const int qpos_lo = q_offset + row0 / G;
-  const int qpos_hi = q_offset + last_row / G;
-  const int k_end = causal ? min(T_, qpos_hi + 1) : T_;
-  const int k_begin = window > 0 ? max(0, qpos_lo - window + 1) : 0;
-  float acc[ROWS_PER_WARP][PER_LANE] = {};
-  float lr[ROWS_PER_WARP], dr[ROWS_PER_WARP];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int row = row0 + warp * ROWS_PER_WARP + i;
-    lr[i] = row_value(lse, b, S, KV, G, h, row, n_rows, INFINITY);
-    dr[i] = row_value(dsum, b, S, KV, G, h, row, n_rows, 0.0f);
-  }
-  for (int kb = (k_begin / TK) * TK; kb < k_end; kb += TK) {
-    __syncthreads();   // previous tile consumed (and q, dO written)
-    for (int e = tid; e < TK * HD; e += WARPS * 32) {
-      const int t = e / HD, d = e % HD, key = kb + t;
-      float kk = 0.0f, vv = 0.0f;
-      if (key < T_) {
-        const size_t off = (((size_t)b * T_ + key) * KV + h) * HD + d;
-        kk = k[off];
-        vv = v[off];
-      }
-      ks[t * (HD + 1) + d] = kk;
-      vs[t * (HD + 1) + d] = vv;
-    }
-    __syncthreads();
-    const int key = kb + lane;
-#pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      const int r = warp * ROWS_PER_WARP + i, row = row0 + r;
-      if (row >= n_rows) continue;          // uniform across the warp
-      float sc = 0.0f, dp = 0.0f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) {
-        sc = fmaf(qs[r * HD + d], ks[lane * (HD + 1) + d], sc);
-        dp = fmaf(dos[r * HD + d], vs[lane * (HD + 1) + d], dp);
-      }
-      const float p = visible(key, row, T_, n_rows, G, causal, window,
-                              q_offset)
-                          ? expf(sc * scale - lr[i])
-                          : 0.0f;
-      const float ds = p * (dp - dr[i]);
-#pragma unroll 8
-      for (int t = 0; t < TK; ++t) {
-        const float dst = __shfl_sync(0xffffffffu, ds, t);
-#pragma unroll
-        for (int j = 0; j < PER_LANE; ++j)
-          acc[i][j] = fmaf(dst, ks[t * (HD + 1) + j * 32 + lane], acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int row = row0 + warp * ROWS_PER_WARP + i;
-    if (row >= n_rows) continue;
-    float* dst =
-        dq + ((((size_t)b * S + row / G) * KV + h) * G + row % G) * HD;
-#pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) dst[j * 32 + lane] = acc[i][j] * scale;
-  }
-}
-
-// dk, dv: 32 keys a block (8 a warp), one query row a lane
-template <int HD>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ dsum,
-                          const float* __restrict__ dout,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          int S, int T_, int KV, int G, int causal,
-                          int window, int q_offset, float scale) {
-  constexpr int PER_LANE = HD / 32;
-  constexpr int KEYS = 32, KPW = KEYS / WARPS;
-  extern __shared__ float fsmem[];
-  float* ks = fsmem;                    // (KEYS, HD)
-  float* vs = ks + KEYS * HD;           // (KEYS, HD)
-  float* qs = vs + KEYS * HD;           // (ROWS, HD + 1)
-  float* dos = qs + ROWS * (HD + 1);    // (ROWS, HD + 1)
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int b = blockIdx.y / KV, h = blockIdx.y % KV;
-  const int n_rows = S * G;
-  const int kb = blockIdx.x * KEYS;
-  const int k_last = min(T_, kb + KEYS) - 1;
-  for (int e = tid; e < KEYS * HD; e += WARPS * 32) {
-    const int t = e / HD, d = e % HD, key = kb + t;
-    float kk = 0.0f, vv = 0.0f;
-    if (key < T_) {
-      const size_t off = (((size_t)b * T_ + key) * KV + h) * HD + d;
-      kk = k[off];
-      vv = v[off];
-    }
-    ks[e] = kk;
-    vs[e] = vv;
-  }
-  const int s_lo = causal ? min(S, max(0, kb - q_offset)) : 0;
-  const int s_hi =
-      window > 0 ? min(S, max(0, k_last + window - q_offset)) : S;
-  const int r_begin = (s_lo * G / ROWS) * ROWS, r_end = s_hi * G;
-  float ak[KPW][PER_LANE] = {}, av[KPW][PER_LANE] = {};
-  for (int r0 = r_begin; r0 < r_end; r0 += ROWS) {
-    __syncthreads();   // previous rows consumed (and k, v written)
-    for (int e = tid; e < ROWS * HD; e += WARPS * 32) {
-      const int r = e / HD, d = e % HD, i = r0 + r;
-      float qv = 0.0f, gv = 0.0f;
-      if (i < n_rows) {
-        const size_t at =
-            ((((size_t)b * S + i / G) * KV + h) * G + i % G) * HD + d;
-        qv = q[at];
-        gv = dout[at];
-      }
-      qs[r * (HD + 1) + d] = qv;
-      dos[r * (HD + 1) + d] = gv;
-    }
-    __syncthreads();
-    const int row = r0 + lane;            // this lane's query row
-    const float lr = row_value(lse, b, S, KV, G, h, row, n_rows, INFINITY);
-    const float dr = row_value(dsum, b, S, KV, G, h, row, n_rows, 0.0f);
-#pragma unroll
-    for (int i = 0; i < KPW; ++i) {
-      const int t = warp * KPW + i, key = kb + t;
-      float sc = 0.0f, dp = 0.0f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) {
-        sc = fmaf(ks[t * HD + d], qs[lane * (HD + 1) + d], sc);
-        dp = fmaf(vs[t * HD + d], dos[lane * (HD + 1) + d], dp);
-      }
-      const float p = visible(key, row, T_, n_rows, G, causal, window,
-                              q_offset)
-                          ? expf(sc * scale - lr)
-                          : 0.0f;
-      const float ds = p * (dp - dr);
-#pragma unroll 8
-      for (int u = 0; u < ROWS; ++u) {
-        const float pu = __shfl_sync(0xffffffffu, p, u);
-        const float du = __shfl_sync(0xffffffffu, ds, u);
-#pragma unroll
-        for (int j = 0; j < PER_LANE; ++j) {
-          av[i][j] = fmaf(pu, dos[u * (HD + 1) + j * 32 + lane], av[i][j]);
-          ak[i][j] = fmaf(du, qs[u * (HD + 1) + j * 32 + lane], ak[i][j]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < KPW; ++i) {
-    const int key = kb + warp * KPW + i;
-    if (key >= T_) continue;
-    const size_t at = (((size_t)b * T_ + key) * KV + h) * HD;
-#pragma unroll
-    for (int j = 0; j < PER_LANE; ++j) {
-      dk[at + j * 32 + lane] = ak[i][j] * scale;
-      dv[at + j * 32 + lane] = av[i][j];
-    }
-  }
-}
-
 template <int HD>
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const float* lse, const float* dsum, const void* dout,
@@ -1081,37 +879,6 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
           (const bf16*)q, (const bf16*)k, (const bf16*)v, lse, dsum,
           (const bf16*)dout, (bf16*)dk, (bf16*)dv, S, T_, KV, G, causal,
           window, q_offset, scale, scale * LOG2E);
-  return (int)cudaGetLastError();
-}
-
-template <int HD>
-int launch_bwd_f32(const void* q, const void* k, const void* v,
-                   const float* lse, const float* dsum, const void* dout,
-                   void* dq, void* dk, void* dv, int B, int S, int T_,
-                   int KV, int G, int causal, int window, int q_offset,
-                   float scale, cudaStream_t stream) {
-  const size_t s1 = sizeof(float) * (2 * ROWS * HD + 2 * TK * (HD + 1));
-  const size_t s2 = sizeof(float) * (2 * 32 * HD + 2 * ROWS * (HD + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_f32_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)s2);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_f32_kernel<HD>
-      <<<dim3((S * G + ROWS - 1) / ROWS, B * KV), WARPS * 32, s1, stream>>>(
-          (const float*)q, (const float*)k, (const float*)v, lse, dsum,
-          (const float*)dout, (float*)dq, S, T_, KV, G, causal, window,
-          q_offset, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_f32_kernel<HD>
-      <<<dim3((T_ + 31) / 32, B * KV), WARPS * 32, s2, stream>>>(
-          (const float*)q, (const float*)k, (const float*)v, lse, dsum,
-          (const float*)dout, (float*)dk, (float*)dv, S, T_, KV, G, causal,
-          window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1142,39 +909,29 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // The backward: dq, dk, dv (shaped and typed like q, k, v) from q, k, v,
-// o, lse and dout; `dsum` is fp32 scratch of B*S*KV*G floats (D).  Three
-// kernels.  Returns a cudaError_t code.
+// o, lse and dout, all bf16; `dsum` is fp32 scratch of B*S*KV*G floats
+// (D).  Three kernels.  Returns a cudaError_t code.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dout,
                                    void* dq, void* dk, void* dv, void* dsum,
                                    int B, int S, int T, int KV, int G, int hd,
                                    int causal, int window, int q_offset,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long rows = (long long)B * S * KV * G;
   const int blocks = (int)((rows + 7) / 8);
-  if (dtype == 1)
-    flash_bwd_dot_kernel<bf16><<<blocks, 256, 0, st>>>(
-        (const bf16*)o, (const bf16*)dout, (float*)dsum, rows, hd);
-  else
-    flash_bwd_dot_kernel<float><<<blocks, 256, 0, st>>>(
-        (const float*)o, (const float*)dout, (float*)dsum, rows, hd);
+  if (hd != 64 && hd != 128)
+    return (int)cudaErrorInvalidValue;
+  flash_bwd_dot_kernel<<<blocks, 256, 0, st>>>(
+      (const bf16*)o, (const bf16*)dout, (float*)dsum, rows, hd);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const float* l = (const float*)lse;
   const float* d = (const float*)dsum;
-  if (dtype == 1 && hd == 128)
+  if (hd == 128)
     return launch_bwd_bf16<128>(q, k, v, l, d, dout, dq, dk, dv, B, S, T, KV,
                                 G, causal, window, q_offset, scale, st);
-  if (dtype == 1 && hd == 64)
-    return launch_bwd_bf16<64>(q, k, v, l, d, dout, dq, dk, dv, B, S, T, KV,
-                               G, causal, window, q_offset, scale, st);
-  if (dtype == 0 && hd == 128)
-    return launch_bwd_f32<128>(q, k, v, l, d, dout, dq, dk, dv, B, S, T, KV,
-                               G, causal, window, q_offset, scale, st);
-  if (dtype == 0 && hd == 64)
-    return launch_bwd_f32<64>(q, k, v, l, d, dout, dq, dk, dv, B, S, T, KV,
-                              G, causal, window, q_offset, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_bwd_bf16<64>(q, k, v, l, d, dout, dq, dk, dv, B, S, T, KV, G,
+                             causal, window, q_offset, scale, st);
 }

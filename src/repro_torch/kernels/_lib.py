@@ -108,7 +108,7 @@ def lib() -> ctypes.CDLL:
         handle.flash_attention_fwd.argtypes = [p] * 5 + [i] * 9 + [
             ctypes.c_float, i, p]
         handle.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [
-            ctypes.c_float, i, p]
+            ctypes.c_float, p]
         for fn in (handle.ssd_scan_bf16, handle.ssd_scan_f32):
             fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [
                 ctypes.POINTER(ll), p, ll, p]

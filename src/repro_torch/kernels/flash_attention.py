@@ -10,7 +10,8 @@ counts its launches in `launches`.
 For training the forward also writes each row's logsumexp (fp32,
 (B, S, KV, G)), and `flash_attention_bwd` computes dq, dk, dv from it
 (three kernels: D = rowsum(dO o), dq over key tiles, dk/dv over query
-tiles; no atomics), counted in `bwd_launches`.  The TPU kernel has no
+tiles; no atomics; bf16 only, as training on the card is bf16), counted
+in `bwd_launches`.  The TPU kernel has no
 backward: the JAX package trains through its jnp twin.
 """
 from __future__ import annotations
@@ -84,9 +85,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_offset: int = 0) -> tuple:
     """(dq, dk, dv) of `flash_attention` at (q, k, v) for the output
     gradient `dout`, from its output `o` and logsumexp `lse`; dk and dv
-    summed over the G query heads of each kv head."""
+    summed over the G query heads of each kv head.  bf16 only."""
     global bwd_launches
     _check(q, k, v, o, dout)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_bwd takes bf16, got {q.dtype}")
     B, S, KV, G, hd = q.shape
     T = k.shape[1]
     if lse.shape != (B, S, KV, G) or lse.dtype != torch.float32 \
@@ -101,8 +104,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dsum.data_ptr(), B, S, T, KV, G, hd, int(causal),
-        int(window), int(q_offset), 1.0 / math.sqrt(hd),
-        1 if q.dtype == torch.bfloat16 else 0, _lib.stream_of(q))
+        int(window), int(q_offset), 1.0 / math.sqrt(hd), _lib.stream_of(q))
     _lib.check(rc, "flash_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv

@@ -6,8 +6,9 @@ This replaces the JAX package's `use_pallas()` switch: which version
 runs follows from where the data lives, not from a flag.
 
 `matmul` and `attention` are the differentiable forms the model path
-calls in training: `torch.autograd.Function`s whose backward is again
-the kernels (`split_matmul_dgrad` / `split_matmul_wgrad`,
+calls, in training and in serving alike: `torch.autograd.Function`s
+whose forward is the entry point above and whose backward is again the
+kernels (`split_matmul_dgrad` / `split_matmul_wgrad`,
 `flash_attention_bwd`).
 """
 from __future__ import annotations
@@ -134,6 +135,8 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
         kw = dict(causal=causal, window=window, q_offset=q_offset)
+        if not any(ctx.needs_input_grad[:3]):      # serving: no lse
+            return flash_attention(q, k, v, **kw)
         o, lse = flash_attention(q, k, v, return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
@@ -149,8 +152,9 @@ class _Attention(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, window: int = 0,
               q_offset: int = 0) -> torch.Tensor:
-    """`flash_attention`, differentiable in q, k, v: the forward saves
-    each row's logsumexp and the backward is `flash_attention_bwd`."""
+    """`flash_attention`, differentiable in q, k, v: when one of them
+    needs a gradient the forward saves each row's logsumexp, and the
+    backward is `flash_attention_bwd`."""
     return _Attention.apply(q, k, v, causal, window, q_offset)
 
 

@@ -6,10 +6,10 @@ Layouts (see common.AttnGeom), as in the JAX package:
   k/v: (B, T, KV, hd)
 
 Full-sequence attention (`attn_forward`: training and prefill) is the
-`flash_attention` kernel (`kernels/ops`): the CUDA kernel for CUDA
-tensors, the blockwise plain version on the CPU; in training its
-differentiable form (`ops.attention`), whose backward is the
-`flash_attention` backward kernel.
+`flash_attention` kernel in its differentiable form (`ops.attention`):
+the CUDA kernel for CUDA tensors, the blockwise plain version on the
+CPU; in training its backward is the `flash_attention` backward
+kernel.
 Decode is plain torch: one query row per sequence against the cache,
 which the JAX package also leaves to the compiler (no kernel to port).
 
@@ -29,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import AttnGeom, rotate
-from repro_torch.sharding.specs import ParamSet, differentiable, seg_matmul
+from repro_torch.sharding.specs import ParamSet, seg_matmul
 
 NEG_INF = -1e30
 
@@ -38,13 +38,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """q:(B,S,KV,G,hd) k,v:(B,T,KV,hd) -> (B,S,KV,G,hd), via the kernel
-    (differentiable when autograd records)."""
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if differentiable(q, k, v):
-        return ops.attention(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
-    return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+    (differentiable)."""
+    return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=causal, window=window, q_offset=q_offset)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

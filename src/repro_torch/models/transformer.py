@@ -31,8 +31,7 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AttnGeom, attn_geometry, norm,
                                        positions_for)
-from repro_torch.sharding.specs import (ParamSet, WeightSpec, differentiable,
-                                       seg_matmul)
+from repro_torch.sharding.specs import ParamSet, WeightSpec, seg_matmul
 
 LayerParams = Dict[str, torch.Tensor]
 
@@ -184,10 +183,8 @@ class Model:
             # x @ emb^T: the kernel reads the (V, d) embedding as stored
             emb = params["embed/tok"]
             x2 = x.reshape(-1, x.shape[-1]).contiguous()
-            logits = (ops.matmul(x2, emb, transpose_w=True)
-                      if differentiable(x2, emb)
-                      else ops.split_matmul(x2, emb, transpose_w=True))
-            logits = logits.reshape(*x.shape[:-1], emb.shape[0])
+            logits = ops.matmul(x2, emb, transpose_w=True).reshape(
+                *x.shape[:-1], emb.shape[0])
         else:
             logits = seg_matmul(x, params, self.pset, "head/out", 0)
         # mask padded vocab entries: in place on the product's fresh

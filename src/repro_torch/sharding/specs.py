@@ -9,10 +9,9 @@ along its ZDP axis when the plan mixes modes, plus the per-weight
 
 This slice runs on one device, so segments carry their mode but no
 placement: device sharding (the JAX module's NamedSharding helpers) and
-the `OverlapConfig` prefetch come with the sharded-execution slice.
-Segments carry the plan's remat bits, and `saved_activation_names`
-reads a plan's remat axis as the JAX module does (`models.registry`
-runs a plan that remats all or nothing, and refuses a selective one).
+the `OverlapConfig` prefetch come with the sharded-execution slice, and
+the per-segment remat bits and `checkpoint_name` tags with selective
+remat.
 """
 from __future__ import annotations
 
@@ -50,11 +49,6 @@ class Segment:
     start: int
     size: int
     key: str          # leaf name suffix ("" if single segment)
-    # per-segment remat from the plan's Decision.remat bits: True =
-    # recompute this segment's activations, False = keep them, None =
-    # inherit the run's global checkpointing default; a segment spanning
-    # slices with mixed bits recomputes (the memory-safe direction)
-    remat: Optional[bool] = None
 
 
 @dataclass
@@ -98,71 +92,23 @@ def _merge_modes(modes: Sequence[str], dim: int
     return out or [(modes[0], 0, dim, tuple(range(g)))]
 
 
-def _segment_remat(decision: Optional[Decision],
-                   idxs: Sequence[int]) -> Optional[bool]:
-    """One merged segment's remat bit from the plan slices that give it
-    bytes: uniform -> that bit, mixed -> True, no explicit bits -> None
-    (inherit)."""
-    if decision is None or decision.remat is None:
-        return None
-    bits = set(decision.remat[j] for j in idxs)
-    if bits == {True}:
-        return True
-    if bits == {False}:
-        return False
-    if bits == {None}:
-        return None
-    return True
-
-
 def layout_for(spec: WeightSpec,
                decision: Optional[Decision]) -> SegLayout:
-    """The JAX package's `layout_for`: the plan's segments of one
-    weight, each with its mode and remat bit."""
+    """The JAX package's `layout_for`, without the per-segment remat
+    bits (`models.registry` reads a plan's remat axis from its
+    decisions, and runs only a plan that remats all or nothing)."""
     modes = decision.modes if decision is not None else (DP,)
     if spec.zdp_axis is None or len(modes) == 1:
         mode = modes[0] if spec.zdp_axis is not None else DP
         return SegLayout(spec, [Segment(
             mode, 0, spec.shape[spec.zdp_axis]
-            if spec.zdp_axis is not None else 0, "",
-            _segment_remat(decision, range(len(modes))))])
+            if spec.zdp_axis is not None else 0, "")])
     dim = spec.shape[spec.zdp_axis]
     merged = _merge_modes(list(modes), dim)
     if len(merged) == 1:
-        m, _, _, idxs = merged[0]
-        return SegLayout(spec, [Segment(m, 0, dim, "",
-                                        _segment_remat(decision, idxs))])
-    return SegLayout(spec, [Segment(m, s, z, f"@{i}",
-                                    _segment_remat(decision, idxs))
-                            for i, (m, s, z, idxs) in enumerate(merged)])
-
-
-def saved_activation_names(layouts: Dict[str, SegLayout],
-                           default_remat: bool
-                           ) -> Tuple[Tuple[str, ...], bool]:
-    """(the `checkpoint_name` tags a selective-remat policy saves,
-    whether anything remats at all) for a plan, as in the JAX package.
-
-    The JAX `seg_matmul` tags per-leaf names on output-dim (concat)
-    segments and the bare weight path on the combined output
-    (single-segment and input-dim-sum cases: there the whole output is
-    saved only if every slice keeps its activations).  Unresolved
-    (inherit) segments follow `default_remat`."""
-    saved: List[str] = []
-    any_remat = False
-    for path, lay in layouts.items():
-        kept = []
-        for seg in lay.segments:
-            r = bool(default_remat) if seg.remat is None else seg.remat
-            if r:
-                any_remat = True
-                kept.append(False)
-            else:
-                saved.append(path + seg.key)
-                kept.append(True)
-        if len(lay.segments) > 1 and all(kept):
-            saved.append(path)    # sum-variant tag on the whole output
-    return tuple(sorted(set(saved))), any_remat
+        return SegLayout(spec, [Segment(merged[0][0], 0, dim, "")])
+    return SegLayout(spec, [Segment(m, s, z, f"@{i}")
+                            for i, (m, s, z, _) in enumerate(merged)])
 
 
 @dataclass
@@ -258,9 +204,8 @@ def seg_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor],
     paper's Figure 4 case — segments are processed sequentially and
     summed: y = sum_j x[..., slice_j] @ W_j.  If it is the *output* dim,
     segment outputs are computed sequentially and concatenated.  Every
-    contraction is the `split_matmul` kernel, differentiable when
-    autograd records (the sum and concat then carry the gradient to
-    each segment)."""
+    contraction is the `split_matmul` kernel in its differentiable form
+    (the sum and concat carry the gradient to each segment)."""
     segs = pset.segments(path)
     spec = pset.layouts[path].spec
     if in_axis_in_weight != 0:
@@ -283,13 +228,6 @@ def seg_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor],
                      dim=-1)
 
 
-def differentiable(*ts: torch.Tensor) -> bool:
-    """Whether autograd records an op on `ts` (training): then the model
-    path takes the differentiable custom ops, else the plain entry
-    points (serving pays no dispatcher cost)."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
 def _contract(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x[..., K] @ w:(K, N), through the `split_matmul` kernel."""
     if w.ndim != 2:
@@ -298,6 +236,4 @@ def _contract(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             f"with the MoE slice)")
     K = x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
-    y = (ops.matmul(x2, w) if differentiable(x2, w)
-         else ops.split_matmul(x2, w))
-    return y.reshape(*x.shape[:-1], w.shape[1])
+    return ops.matmul(x2, w).reshape(*x.shape[:-1], w.shape[1])
