@@ -50,7 +50,10 @@ the final line is not printed):
    other options (G 3 at hd 128, window 1024, ragged S and T, an
    offset, non-causal, a window of 17 at S 45; both matmul layouts at
    ragged and odd sizes in bf16 and f32), every repeated backward
-   bit-identical;
+   bit-identical; for the attention backward also no register spill in
+   its kernels, its plan at the training shape (blocks, tiles, masked
+   tile pairs, shared memory, scratch) and the device time of its two
+   kernels (the row pass and the key-major kernel);
 6. train qwen1.5-0.5b at full width and depth: plan it with `osdp` for
    train_4k at global batch 8 on a 1x1 mesh with 64 GiB and the h100-sxm
    preset (checkpointing "selective": the search co-decides remat,
@@ -1037,6 +1040,52 @@ def check_flash_bwd(torch, gen, B, S=4096, KV=16, G=1, hd=64):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def check_flash_bwd_design(torch, gen, B, S=4096, KV=16, G=1, hd=64) -> dict:
+    """The key-major backward beyond agreement: no register spill in its
+    kernels, its plan at the training shape, and the device time of its
+    three kernels there (profiler, 10 calls)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import flash_attention as fa
+    ptx = [ln for ln in _ptxas(_lib.build_log) if "flash_bwd" in ln]
+    spills = [ln for ln in ptx if any(int(v) for v in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", ln))]
+    if not ptx or spills:
+        _fail(f"flash_attention_bwd kernels spill registers (or ptxas "
+              f"reported none): {spills or ptx}")
+    kw = dict(causal=True)
+    args = _flash_bwd_inputs(torch, gen, B, S, S, KV, G, hd, torch.bfloat16,
+                             kw)
+    plan = fa.plan_launch(B, S, S, KV, G, hd, True)
+    fa.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    calls = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fa.flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and "flash_bwd" in ev.key:
+            name = ("rows" if "stats" in ev.key else "dq" if "dq_store"
+                    in ev.key else "key_major")
+            kernels[name] = (kernels.get(name, 0.0)
+                             + ev.self_device_time_total / 1e3 / calls)
+    if sorted(kernels) != ["dq", "key_major", "rows"]:
+        _fail(f"flash_attention_bwd: profiler saw kernels {sorted(kernels)}")
+    edge = sum(not plan.full(qt, kt) for kt in range(plan.n_kt)
+               for qt in range(*plan.walk(kt)))
+    pairs = sum(max(0, e - b_) for b_, e in map(plan.walk,
+                                                range(plan.n_kt)))
+    return dict(ptxas=ptx, kernel_ms=kernels, blocks=plan.items,
+                tiles=[plan.bq, plan.bk], smem=plan.smem,
+                scratch_mib=4 * (plan.acc_floats + plan.row_floats) / 2**20,
+                descending=plan.descending, bh_major=plan.bh_major,
+                tile_pairs=pairs, edge_pairs=edge)
+
+
 # off the training path: the backward's other options and edges
 FLASH_BWD_CASES = (
     # (B, S, T, KV, G, hd, causal, window, q_offset, dtype, what)
@@ -1550,7 +1599,18 @@ def main(argv=None) -> int:
                   f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
+    bwd_design = check_flash_bwd_design(
+        torch, gen, TRAIN_BATCH, 4096, kv_heads, group, qw.resolved_head_dim)
+    print(f"  flash_attention_bwd: no spills ("
+          + "; ".join(bwd_design["ptxas"]) + f"); {bwd_design['blocks']} "
+          f"blocks of {bwd_design['tiles'][1]} keys, {bwd_design['tiles'][0]}"
+          f" query rows a step, {bwd_design['tile_pairs']} tile pairs of "
+          f"which {bwd_design['edge_pairs']} masked, {bwd_design['smem']} B "
+          f"shared, {bwd_design['scratch_mib']:.1f} MiB scratch; kernels "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                      bwd_design["kernel_ms"].items()))
     report.update(bwd)
+    report["flash_attention_bwd_design"] = bwd_design
     report["train_forward"] = fwd
     report["split_matmul_head_nt"] = head_fwd
     n_bwd = check_backward_options(torch, gen)
@@ -1611,7 +1671,10 @@ def main(argv=None) -> int:
                # the largest layer products: w13's dgrad and wgrad
                entry("split_matmul_dgrad", bwd["split_matmul_dgrad"][1]),
                entry("split_matmul_wgrad", bwd["split_matmul_wgrad"][1]),
-               entry("flash_attention_bwd", bwd["flash_attention_bwd"][0])]
+               dict(entry("flash_attention_bwd",
+                          bwd["flash_attention_bwd"][0]),
+                    kernel_ms=bwd_design["kernel_ms"],
+                    blocks=bwd_design["blocks"])]
     report["seconds"] = time.perf_counter() - t_start
     out_path.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -8,15 +8,30 @@ double-buffered K/V tiles), float32 on CUDA cores.  CUDA tensors only
 counts its launches in `launches`.
 
 For training the forward also writes each row's logsumexp (fp32,
-(B, S, KV, G)), and `flash_attention_bwd` computes dq, dk, dv from it
-(three kernels: D = rowsum(dO o), dq over key tiles, dk/dv over query
-tiles; no atomics; bf16 only, as training on the card is bf16), counted
-in `bwd_launches`.  The TPU kernel has no
-backward: the JAX package trains through its jnp twin.
+(B, S, KV, G)), and `flash_attention_bwd` computes dq, dk, dv from it,
+bf16 only (training on the card is bf16), counted in `bwd_launches`.
+The TPU kernel has no backward: the JAX package trains through its jnp
+twin.  The backward is three kernels: a row pass (D = rowsum(dO o), lse
+in log2 units, positions); one key-major kernel on TMA and wgmma in
+which a block owns 128 keys of one (batch, kv head), keeps K, V, dK and
+dV on chip for its walk over the query tiles that see them, and has the
+copy engine add each step's dQ tile into an fp32 scratch in a fixed
+order of key tiles, gated by a counter per query tile, so a repeated
+call is bit-identical; and a pass that casts that sum to bf16 dq.
+
+`plan_launch`, pure Python, gives the backward's tiles, grid, ticket
+order, dq order, which tile pairs need masks, shared memory and scratch
+sizes (`BwdPlan`).  It is the plan's one owner: the wrapper passes it to
+the C entry (`BwdPlan.c_plan`), which checks it against the shapes and
+launches it as given; the CPU tests check what it says the kernel does.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 import math
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
@@ -25,6 +40,10 @@ from repro_torch.kernels import _lib
 HEAD_DIMS = (64, 128)  # head dims the kernel is compiled for
 launches = 0           # forward launches since the last reset
 bwd_launches = 0       # backward launches
+
+BWD_BK = 128           # keys a backward block (csrc: BWD_BK)
+BWD_STAGES = 3         # the Q/dO ring's depth (csrc: BWD_STAGES)
+MAX_SMEM = 232448      # bytes of shared memory a block (H100)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,6 +98,196 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+# --- the backward's plan -------------------------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one backward call is launched, and what its key-major kernel
+    does: a block takes the item (batch * KV + kv head, key tile) of its
+    ticket and walks the query tiles `walk(kt)`; query tile qt gets the
+    dQ tiles of key tiles `order(qt)` in that order.  The geometry
+    mirrors `struct BwdGeom` in csrc/flash_attention.cu."""
+    B: int
+    S: int
+    T: int
+    KV: int
+    G: int
+    hd: int
+    causal: bool
+    window: int
+    q_offset: int
+    bq: int             # query rows a step (a tile, pad rows included)
+    rows: int           # real rows a query tile: (bq // G) * G
+    bk: int             # keys a key tile (a block)
+    stages: int
+    n_qt: int
+    n_kt: int
+    items: int          # blocks: B * KV * n_kt
+    smem: int           # dynamic shared memory of a block, bytes
+    descending: bool    # dq order: decreasing key tile
+    bh_major: bool      # tickets: all key tiles of one head together
+    row_floats: int     # fp32 row values (lse2, D, position) a call
+    acc_floats: int     # fp32 dq scratch
+    counter_ints: int   # int32 counters: the ticket, one a query tile
+    row_blocks: int     # blocks of the row pass (256 threads, hd/8 a row)
+    store_blocks: int   # blocks of the dq pass (256 threads, a float4 each)
+
+    C_FIELDS = ("bq", "rows", "bk", "stages", "n_qt", "n_kt", "items",
+                "smem", "descending", "bh_major", "row_floats",
+                "acc_floats", "counter_ints", "row_blocks", "store_blocks")
+
+    @functools.cached_property
+    def c_plan(self) -> ctypes.Array:
+        """The plan as the C entry reads it (`struct BwdPlanC`): int64
+        values in `C_FIELDS` order."""
+        vals = [int(getattr(self, f)) for f in self.C_FIELDS]
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+    # geometry: positions and keys are the contract's (query s at
+    # q_offset + s, key t at t); rows are (s, g) flattened
+    def pos_lo(self, qt: int) -> int:
+        return self.q_offset + qt * self.rows // self.G
+
+    def pos_hi(self, qt: int) -> int:
+        end = min(self.S * self.G, (qt + 1) * self.rows)
+        return self.q_offset + (end - 1) // self.G
+
+    def kt_range(self, qt: int) -> Tuple[int, int]:
+        """(lo, hi): the key tiles some row of query tile qt sees;
+        empty when lo > hi."""
+        lo = max(0, self.pos_lo(qt) - self.window + 1) if self.window else 0
+        hi = min(self.T - 1, self.pos_hi(qt)) if self.causal else self.T - 1
+        return lo // self.bk, (hi // self.bk if hi >= lo
+                               else lo // self.bk - 1)
+
+    def walk(self, kt: int) -> Tuple[int, int]:
+        """[qb, qe): the query tiles that see some key of key tile kt."""
+        k0 = kt * self.bk
+        k1 = min(self.T, k0 + self.bk) - 1
+        s_lo = min(self.S, max(0, k0 - self.q_offset)) if self.causal else 0
+        s_hi = (min(self.S, max(0, k1 + self.window - self.q_offset))
+                if self.window else self.S)
+        qb = s_lo * self.G // self.rows
+        qe = _cdiv(s_hi * self.G, self.rows) if s_hi > s_lo else qb
+        return qb, qe
+
+    def full(self, qt: int, kt: int) -> bool:
+        """Every (row, key) pair of the tile pair visible: no mask."""
+        k0 = kt * self.bk
+        k1 = k0 + self.bk - 1
+        return (k1 < self.T
+                and (not self.causal or k1 <= self.pos_lo(qt))
+                and (not self.window or self.pos_hi(qt) - k0 < self.window))
+
+    def order(self, qt: int) -> List[int]:
+        """The key tiles that add into query tile qt's dq, in order: the
+        first writes, the last stores bf16 dq."""
+        lo, hi = self.kt_range(qt)
+        tiles = list(range(lo, hi + 1))
+        return tiles[::-1] if self.descending else tiles
+
+    def tickets(self) -> Iterator[Tuple[int, int]]:
+        """(batch * KV + kv head, key tile) of tickets 0, 1, ...: a block
+        takes the item of the ticket it draws at its start."""
+        BH = self.B * self.KV
+        for t in range(self.items):
+            r, bh = ((t % self.n_kt, t // self.n_kt) if self.bh_major
+                     else (t // BH, t % BH))
+            yield bh, (self.n_kt - 1 - r if self.descending else r)
+
+
+def bwd_bq(hd: int) -> int:
+    """Query rows a backward step (csrc: Bwd<HD>::BQ): 128 at hd 64, 64
+    at hd 128, so that dK, dV, S^T and dP^T fit the registers."""
+    return 128 if hd == 64 else 64
+
+
+def bwd_smem(hd: int) -> int:
+    """Dynamic shared memory of a backward block (csrc: Bwd<HD>::SMEM):
+    K and V, dS^T, the fp32 dQ tile staged for its add, the ring of Q,
+    dO and row values, barriers, and 1 KB to align the ring to the
+    swizzle's period."""
+    bq, nb = bwd_bq(hd), hd // 64
+    kv, ds, qb = nb * BWD_BK * 128, BWD_BK * bq * 2, nb * bq * 128
+    stage = 2 * qb + _cdiv(3 * bq * 4, 1024) * 1024
+    return 2 * kv + ds + bq * hd * 4 + BWD_STAGES * stage + 1024 + 1024
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_launch(B: int, S: int, T: int, KV: int, G: int, hd: int,
+                causal: bool, window: int = 0, q_offset: int = 0, *,
+                descending: Optional[bool] = None,
+                bh_major: Optional[bool] = None) -> BwdPlan:
+    """The launch of one backward call at q (B, S, KV, G, hd), k and v
+    (B, T, KV, hd).  By default the dq order is decreasing in the key
+    tile (the order in which causal key tiles reach a query tile) and
+    tickets go by head (a head's key tiles together share their q, dO
+    and dq tiles in L2); `tools/flash_bwd_phases.py` times the other
+    three orders, which the kernel also takes."""
+    bq = bwd_bq(hd)
+    if not (hd in HEAD_DIMS and B >= 1 and S >= 1 and T >= 1 and KV >= 1
+            and 1 <= G <= bq and q_offset >= 0 and window >= 0):
+        raise ValueError(
+            f"flash_attention_bwd takes head dim in {HEAD_DIMS}, 1 <= G <= "
+            f"{bq} query heads a kv head, q_offset >= 0 and window "
+            f">= 0; got B={B} S={S} T={T} KV={KV} G={G} hd={hd} "
+            f"window={window} q_offset={q_offset}")
+    descending = True if descending is None else descending
+    bh_major = True if bh_major is None else bh_major
+    rows = bq // G * G
+    n_qt, n_kt = _cdiv(S * G, rows), _cdiv(T, BWD_BK)
+    tiles = B * KV * n_qt
+    plan = BwdPlan(B, S, T, KV, G, hd, bool(causal), int(window),
+                   int(q_offset), bq, rows, BWD_BK, BWD_STAGES, n_qt, n_kt,
+                   B * KV * n_kt, bwd_smem(hd), bool(descending),
+                   bool(bh_major), tiles * 3 * bq, tiles * bq * hd,
+                   tiles + 1, _cdiv(tiles * bq * hd // 8, 256),
+                   _cdiv(tiles * bq * hd // 4, 256))
+    if plan.items >= 2 ** 31 or plan.row_blocks >= 2 ** 31:
+        raise ValueError(f"flash_attention_bwd: {plan.items} blocks exceed "
+                         f"one launch")
+    if plan.smem > MAX_SMEM:
+        raise ValueError(f"flash_attention_bwd: {plan.smem} bytes of "
+                         f"shared memory a block")
+    return plan
+
+
+def bind_bwd(handle: ctypes.CDLL) -> None:
+    """The C types of the backward entry of a loaded kernel library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.flash_attention_bwd.argtypes = [p] * 12 + [i] * 9 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
+    handle.flash_attention_bwd.restype = i
+
+
+def launch_bwd(handle: ctypes.CDLL, q, k, v, o, lse, dout, *, causal: bool,
+               window: int = 0, q_offset: int = 0,
+               plan: Optional[BwdPlan] = None) -> tuple:
+    """One backward launch through `handle` (checked inputs): allocates
+    dq, dk, dv and the scratch, passes the plan; -> (dq, dk, dv)."""
+    B, S, KV, G, hd = q.shape
+    T = k.shape[1]
+    plan = plan or plan_launch(B, S, T, KV, G, hd, bool(causal),
+                               int(window), int(q_offset))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dev = q.device
+    rowv = torch.empty(plan.row_floats, dtype=torch.float32, device=dev)
+    acc = torch.empty(plan.acc_floats, dtype=torch.float32, device=dev)
+    counters = torch.zeros(plan.counter_ints, dtype=torch.int32, device=dev)
+    rc = handle.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), rowv.data_ptr(), acc.data_ptr(), counters.data_ptr(),
+        B, S, T, KV, G, hd, int(causal), int(window), int(q_offset),
+        1.0 / math.sqrt(hd), plan.c_plan, _lib.stream_of(q))
+    _lib.check(rc, "flash_attention_bwd")
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool, window: int = 0,
@@ -96,15 +305,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"lse must be contiguous fp32 {(B, S, KV, G)} on "
                          f"{q.device}")
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((B, S, KV, G), dtype=torch.float32, device=q.device)
-    rc = _lib.lib().flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dsum.data_ptr(), B, S, T, KV, G, hd, int(causal),
-        int(window), int(q_offset), 1.0 / math.sqrt(hd), _lib.stream_of(q))
-    _lib.check(rc, "flash_attention_bwd")
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
+    plan = plan_launch(B, S, T, KV, G, hd, bool(causal), int(window),
+                       int(q_offset))
+    out = launch_bwd(_lib.lib(), q, k, v, o, lse, dout, causal=causal,
+                     window=window, q_offset=q_offset, plan=plan)
     bwd_launches += 1
-    return dq, dk, dv
+    return out
