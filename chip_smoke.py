@@ -52,8 +52,8 @@ the final line is not printed):
    ragged and odd sizes in bf16 and f32), every repeated backward
    bit-identical; for the attention backward also no register spill in
    its kernels, its plan at the training shape (blocks, tiles, masked
-   tile pairs, shared memory, scratch) and the device time of its two
-   kernels (the row pass and the key-major kernel);
+   tile pairs, shared memory, scratch) and the device time of its three
+   kernels (the row pass, the key-major kernel and the dq pass);
 6. train qwen1.5-0.5b at full width and depth: plan it with `osdp` for
    train_4k at global batch 8 on a 1x1 mesh with 64 GiB and the h100-sxm
    preset (checkpointing "selective": the search co-decides remat,
@@ -1082,7 +1082,6 @@ def check_flash_bwd_design(torch, gen, B, S=4096, KV=16, G=1, hd=64) -> dict:
     return dict(ptxas=ptx, kernel_ms=kernels, blocks=plan.items,
                 tiles=[plan.bq, plan.bk], smem=plan.smem,
                 scratch_mib=4 * (plan.acc_floats + plan.row_floats) / 2**20,
-                descending=plan.descending, bh_major=plan.bh_major,
                 tile_pairs=pairs, edge_pairs=edge)
 
 

@@ -523,21 +523,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 //  releases the counter once its copy has completed, a step later, so no
 //  thread waits on device memory in the step.  Each element's add is
 //  atomic and the adds into it come in a fixed order, so the sum's bits
-//  are fixed.  Which order, and in which order blocks take their (batch,
-//  kv head, key tile) items, is the plan's (see kernels/
-//  flash_attention.py::plan_launch): causal key tile j reaches query
-//  tile i at step i - j of its walk (at hd 64), so with the order
-//  decreasing in the key tile every predecessor has arrived a step
-//  earlier and no block waits, and items taken by (batch, head), all key
-//  tiles of a head together, share their q, dO and dq_acc tiles in L2.
+//  are fixed.  The order is decreasing in the key tile (dq_rank): causal
+//  key tile j reaches query tile i at step i - j of its walk (at hd 64),
+//  so key tile j + 1 has reached it a step earlier and no block waits.
+//  Blocks take their (batch, kv head, key tile) items by head (bwd_item):
+//  all key tiles of a head together, the highest first, so they share
+//  their q, dO and dq_acc tiles in L2.  So a head's causal key tiles are
+//  issued shortest walk first: key tile 0, which sees the most rows, is
+//  last, as the dq order needs.  (tools/flash_bwd_phases.py builds the
+//  increasing order and tickets by key tile as variants and times them.)
 //  Forward progress: a block takes its item from a ticket counter
 //  (atomicAdd on the plan's counter 0, at its start), never from
 //  blockIdx, and the ticket order puts every item after the one it waits
-//  for (with the order decreasing in the key tile, key tile j + 1 of the
-//  same head takes the ticket before key tile j).  A block holding ticket
-//  t is running; the unfinished item with the least ticket waits on
-//  nothing unfinished, so it finishes, and by induction every item does,
-//  however few blocks are resident.  The waits themselves trap after
+//  for (key tile j + 1 of the same head takes the ticket before key tile
+//  j).  A block holding ticket t is running; the unfinished item with the
+//  least ticket waits on nothing unfinished, so it finishes, and by
+//  induction every item does, however few blocks are resident.  The waits themselves trap after
 //  about 10 s, as mbar_wait does, so a broken plan fails the launch
 //  instead of hanging the card.
 
@@ -615,14 +616,13 @@ struct BwdGeom {
 // The launch plan as kernels/flash_attention.py::BwdPlan.c_plan lays it
 // out: int64 fields in this order.
 struct BwdPlanC {
-  long long bq, rows, bk, stages, n_qt, n_kt, items, smem, descending,
-      bh_major, row_floats, acc_floats, counter_ints, row_blocks,
-      store_blocks;
+  long long bq, rows, bk, stages, n_qt, n_kt, items, smem, row_floats,
+      acc_floats, counter_ints, row_blocks, store_blocks;
 };
 
 struct BwdArgs {
   BwdGeom g;
-  int KV, descending, bh_major;
+  int KV;
   float scale, scale_log2;
 };
 
@@ -810,6 +810,18 @@ __device__ __forceinline__ void dq_release(int* cnt, int rank) {
   hopper::st_release(cnt, rank + 1);
 }
 
+// The item (batch * KV + kv head, key tile) of ticket t: the key tiles of
+// a head together, the highest first (see the note above).
+__device__ __forceinline__ int2 bwd_item(int t, int n_kt, int BH) {
+  return make_int2(t / n_kt, n_kt - 1 - t % n_kt);
+}
+
+// Key tile kt's place in the dq order of a query tile that key tiles
+// [lo, hi] see: decreasing key tile.
+__device__ __forceinline__ int dq_rank(int kt, int lo, int hi) {
+  return hi - kt;
+}
+
 // flash_bwd_phases: variant macros go here
 
 template <int HD>
@@ -857,11 +869,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int BH = gridDim.x / g.n_kt;
-  const int t = *item_s;
-  const int r_ = a.bh_major ? t % g.n_kt : t / BH;
-  const int bh = a.bh_major ? t / g.n_kt : t % BH;
-  const int kt = a.descending ? g.n_kt - 1 - r_ : r_;
+  const int2 item = bwd_item(*item_s, g.n_kt, gridDim.x / g.n_kt);
+  const int bh = item.x, kt = item.y;
   const int b = bh / a.KV, kh = bh % a.KV;
   int qb, qe;
   g.walk(kt, qb, qe);
@@ -1065,9 +1074,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tq,
     // stage's Q, dO and row values are read
     named_bar_sync(1, BWD_THREADS);
     if (tid == 0) {
-      // dq: add into the query tile's sum in the plan's order of key tiles
-      const int lo = g.kt_lo(qt), hi = g.kt_hi(qt);
-      prev_rank = a.descending ? hi - kt : kt - lo;
+      // dq: add into the query tile's sum in the order of key tiles
+      prev_rank = dq_rank(kt, g.kt_lo(qt), g.kt_hi(qt));
       prev_cnt = counters + 1 + (size_t)bh * g.n_qt + qt;
       if (prev_rank > 0) dq_wait(prev_cnt, prev_rank);
       dq_add(dq_acc + ((size_t)bh * g.n_qt + qt) * BQ * HD, dqs,
@@ -1154,8 +1162,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   g.n_qt = (g.n_rows + g.rows - 1) / g.rows;
   g.n_kt = (T + BWD_BK - 1) / BWD_BK;
   a.KV = KV;
-  a.descending = (int)p.descending;
-  a.bh_major = (int)p.bh_major;
   a.scale = scale;
   a.scale_log2 = scale * LOG2E;
   const long long items = (long long)B * KV * g.n_kt;
@@ -1244,8 +1250,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // o, lse and dout, all bf16, launched as `plan` (kernels/
 // flash_attention.py::BwdPlan.c_plan, checked here against the shapes):
 // `rowv` (plan row_floats fp32), `acc` (acc_floats fp32) are scratch the
-// kernels overwrite, `counters` (counter_ints int32) must be zero.  Two
-// kernels.  Returns a cudaError_t code.
+// kernels overwrite, `counters` (counter_ints int32) must be zero.  Three
+// kernels: the row pass, the key-major kernel, the dq pass.  Returns a
+// cudaError_t code.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dout,

@@ -107,8 +107,8 @@ def lib() -> ctypes.CDLL:
             + [i, p]
         handle.flash_attention_fwd.argtypes = [p] * 5 + [i] * 9 + [
             ctypes.c_float, i, p]
-        from repro_torch.kernels.flash_attention import bind_bwd
-        bind_bwd(handle)
+        handle.flash_attention_bwd.argtypes = [p] * 12 + [i] * 9 + [
+            ctypes.c_float, ctypes.POINTER(ll), p]
         for fn in (handle.ssd_scan_bf16, handle.ssd_scan_f32):
             fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [
                 ctypes.POINTER(ll), p, ll, p]
@@ -116,7 +116,7 @@ def lib() -> ctypes.CDLL:
                    handle.split_matmul_stream_bf16,
                    handle.split_matmul_wgmma_bf16,
                    handle.split_matmul_strided,
-                   handle.flash_attention_fwd,
+                   handle.flash_attention_fwd, handle.flash_attention_bwd,
                    handle.ssd_scan_bf16, handle.ssd_scan_f32):
             fn.restype = ctypes.c_int
         _lib = handle

@@ -19,11 +19,13 @@ copy engine add each step's dQ tile into an fp32 scratch in a fixed
 order of key tiles, gated by a counter per query tile, so a repeated
 call is bit-identical; and a pass that casts that sum to bf16 dq.
 
-`plan_launch`, pure Python, gives the backward's tiles, grid, ticket
-order, dq order, which tile pairs need masks, shared memory and scratch
-sizes (`BwdPlan`).  It is the plan's one owner: the wrapper passes it to
-the C entry (`BwdPlan.c_plan`), which checks it against the shapes and
-launches it as given; the CPU tests check what it says the kernel does.
+`plan_launch`, pure Python, gives the backward's tiles, grid, which tile
+pairs need masks, shared memory and scratch sizes (`BwdPlan`), and says
+in which order the kernel takes its items and sums dq (fixed: key tiles
+decreasing, a head's key tiles together).  It is the plan's one owner:
+the wrapper passes it to the C entry (`BwdPlan.c_plan`), which checks it
+against the shapes and launches it as given; the CPU tests check what it
+says the kernel does.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Tuple
 
 import torch
 
@@ -110,7 +112,8 @@ class BwdPlan:
     does: a block takes the item (batch * KV + kv head, key tile) of its
     ticket and walks the query tiles `walk(kt)`; query tile qt gets the
     dQ tiles of key tiles `order(qt)` in that order.  The geometry
-    mirrors `struct BwdGeom` in csrc/flash_attention.cu."""
+    mirrors `struct BwdGeom` in csrc/flash_attention.cu, the orders its
+    `bwd_item` and `dq_rank`."""
     B: int
     S: int
     T: int
@@ -128,8 +131,6 @@ class BwdPlan:
     n_kt: int
     items: int          # blocks: B * KV * n_kt
     smem: int           # dynamic shared memory of a block, bytes
-    descending: bool    # dq order: decreasing key tile
-    bh_major: bool      # tickets: all key tiles of one head together
     row_floats: int     # fp32 row values (lse2, D, position) a call
     acc_floats: int     # fp32 dq scratch
     counter_ints: int   # int32 counters: the ticket, one a query tile
@@ -137,8 +138,8 @@ class BwdPlan:
     store_blocks: int   # blocks of the dq pass (256 threads, a float4 each)
 
     C_FIELDS = ("bq", "rows", "bk", "stages", "n_qt", "n_kt", "items",
-                "smem", "descending", "bh_major", "row_floats",
-                "acc_floats", "counter_ints", "row_blocks", "store_blocks")
+                "smem", "row_floats", "acc_floats", "counter_ints",
+                "row_blocks", "store_blocks")
 
     @functools.cached_property
     def c_plan(self) -> ctypes.Array:
@@ -184,20 +185,19 @@ class BwdPlan:
                 and (not self.window or self.pos_hi(qt) - k0 < self.window))
 
     def order(self, qt: int) -> List[int]:
-        """The key tiles that add into query tile qt's dq, in order: the
-        first writes, the last stores bf16 dq."""
+        """The key tiles that add into query tile qt's fp32 dq sum, in
+        order, decreasing (causal key tile j reaches query tile i at step
+        i - j of its walk): the first writes, the others add."""
         lo, hi = self.kt_range(qt)
-        tiles = list(range(lo, hi + 1))
-        return tiles[::-1] if self.descending else tiles
+        return list(range(hi, lo - 1, -1))
 
     def tickets(self) -> Iterator[Tuple[int, int]]:
         """(batch * KV + kv head, key tile) of tickets 0, 1, ...: a block
-        takes the item of the ticket it draws at its start."""
-        BH = self.B * self.KV
+        takes the item of the ticket it draws at its start.  A head's key
+        tiles come together (they share q, dO and dq tiles in L2), the
+        highest first, so each comes after those it waits for."""
         for t in range(self.items):
-            r, bh = ((t % self.n_kt, t // self.n_kt) if self.bh_major
-                     else (t // BH, t % BH))
-            yield bh, (self.n_kt - 1 - r if self.descending else r)
+            yield t // self.n_kt, self.n_kt - 1 - t % self.n_kt
 
 
 def bwd_bq(hd: int) -> int:
@@ -219,15 +219,10 @@ def bwd_smem(hd: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def plan_launch(B: int, S: int, T: int, KV: int, G: int, hd: int,
-                causal: bool, window: int = 0, q_offset: int = 0, *,
-                descending: Optional[bool] = None,
-                bh_major: Optional[bool] = None) -> BwdPlan:
+                causal: bool, window: int = 0,
+                q_offset: int = 0) -> BwdPlan:
     """The launch of one backward call at q (B, S, KV, G, hd), k and v
-    (B, T, KV, hd).  By default the dq order is decreasing in the key
-    tile (the order in which causal key tiles reach a query tile) and
-    tickets go by head (a head's key tiles together share their q, dO
-    and dq tiles in L2); `tools/flash_bwd_phases.py` times the other
-    three orders, which the kernel also takes."""
+    (B, T, KV, hd)."""
     bq = bwd_bq(hd)
     if not (hd in HEAD_DIMS and B >= 1 and S >= 1 and T >= 1 and KV >= 1
             and 1 <= G <= bq and q_offset >= 0 and window >= 0):
@@ -236,15 +231,13 @@ def plan_launch(B: int, S: int, T: int, KV: int, G: int, hd: int,
             f"{bq} query heads a kv head, q_offset >= 0 and window "
             f">= 0; got B={B} S={S} T={T} KV={KV} G={G} hd={hd} "
             f"window={window} q_offset={q_offset}")
-    descending = True if descending is None else descending
-    bh_major = True if bh_major is None else bh_major
     rows = bq // G * G
     n_qt, n_kt = _cdiv(S * G, rows), _cdiv(T, BWD_BK)
     tiles = B * KV * n_qt
     plan = BwdPlan(B, S, T, KV, G, hd, bool(causal), int(window),
                    int(q_offset), bq, rows, BWD_BK, BWD_STAGES, n_qt, n_kt,
-                   B * KV * n_kt, bwd_smem(hd), bool(descending),
-                   bool(bh_major), tiles * 3 * bq, tiles * bq * hd,
+                   B * KV * n_kt, bwd_smem(hd), tiles * 3 * bq,
+                   tiles * bq * hd,
                    tiles + 1, _cdiv(tiles * bq * hd // 8, 256),
                    _cdiv(tiles * bq * hd // 4, 256))
     if plan.items >= 2 ** 31 or plan.row_blocks >= 2 ** 31:
@@ -254,38 +247,6 @@ def plan_launch(B: int, S: int, T: int, KV: int, G: int, hd: int,
         raise ValueError(f"flash_attention_bwd: {plan.smem} bytes of "
                          f"shared memory a block")
     return plan
-
-
-def bind_bwd(handle: ctypes.CDLL) -> None:
-    """The C types of the backward entry of a loaded kernel library."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    handle.flash_attention_bwd.argtypes = [p] * 12 + [i] * 9 + [
-        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
-    handle.flash_attention_bwd.restype = i
-
-
-def launch_bwd(handle: ctypes.CDLL, q, k, v, o, lse, dout, *, causal: bool,
-               window: int = 0, q_offset: int = 0,
-               plan: Optional[BwdPlan] = None) -> tuple:
-    """One backward launch through `handle` (checked inputs): allocates
-    dq, dk, dv and the scratch, passes the plan; -> (dq, dk, dv)."""
-    B, S, KV, G, hd = q.shape
-    T = k.shape[1]
-    plan = plan or plan_launch(B, S, T, KV, G, hd, bool(causal),
-                               int(window), int(q_offset))
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dev = q.device
-    rowv = torch.empty(plan.row_floats, dtype=torch.float32, device=dev)
-    acc = torch.empty(plan.acc_floats, dtype=torch.float32, device=dev)
-    counters = torch.zeros(plan.counter_ints, dtype=torch.int32, device=dev)
-    rc = handle.flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), rowv.data_ptr(), acc.data_ptr(), counters.data_ptr(),
-        B, S, T, KV, G, hd, int(causal), int(window), int(q_offset),
-        1.0 / math.sqrt(hd), plan.c_plan, _lib.stream_of(q))
-    _lib.check(rc, "flash_attention_bwd")
-    return dq, dk, dv
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -309,7 +270,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return tuple(torch.zeros_like(t) for t in (q, k, v))
     plan = plan_launch(B, S, T, KV, G, hd, bool(causal), int(window),
                        int(q_offset))
-    out = launch_bwd(_lib.lib(), q, k, v, o, lse, dout, causal=causal,
-                     window=window, q_offset=q_offset, plan=plan)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dev = q.device
+    rowv = torch.empty(plan.row_floats, dtype=torch.float32, device=dev)
+    acc = torch.empty(plan.acc_floats, dtype=torch.float32, device=dev)
+    counters = torch.zeros(plan.counter_ints, dtype=torch.int32, device=dev)
+    rc = _lib.lib().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), rowv.data_ptr(), acc.data_ptr(), counters.data_ptr(),
+        B, S, T, KV, G, hd, int(causal), int(window), int(q_offset),
+        1.0 / math.sqrt(hd), plan.c_plan, _lib.stream_of(q))
+    _lib.check(rc, "flash_attention_bwd")
     bwd_launches += 1
-    return out
+    return dq, dk, dv

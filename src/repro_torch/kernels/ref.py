@@ -161,74 +161,6 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor, o: torch.Tensor,
-                                  lse: torch.Tensor, dout: torch.Tensor, *,
-                                  causal: bool, window: int = 0,
-                                  q_offset: int = 0, rows: int = 128,
-                                  bk: int = 128,
-                                  descending: bool = True) -> tuple:
-    """The arithmetic of the key-major CUDA backward
-    (`csrc/flash_attention.cu::flash_bwd_kernel`) on the CPU: query
-    tiles of `rows` (s, g) rows, key tiles of `bk` keys; for each pair
-    that holds a visible (row, key) pair, S^T and dP^T in fp32,
-    P = exp2(S scale log2e - lse log2e) (0 where masked),
-    dS = P (dP - D); P and dS rounded to bf16 as the kernel's second
-    products take them; dV += P^T dO and dK += dS^T q in fp32; each key
-    tile's dQ tile dS k summed in fp32 over the key tiles of the query
-    tile in decreasing (or, with descending=False, increasing) order.
-    Same contract as `flash_attention_bwd_ref`."""
-    B, S, KV, G, hd = q.shape
-    T = k.shape[1]
-    scale = 1.0 / math.sqrt(hd)
-    log2e = 1.4426950408889634
-    n = S * G
-    rowm = lambda t: t.float().permute(0, 2, 1, 3, 4).reshape(B, KV, n, -1)
-    qr, dor = rowm(q), rowm(dout)
-    dsum = (dout.float() * o.float()).sum(-1)            # (B,S,KV,G)
-    dsum = dsum.permute(0, 2, 1, 3).reshape(B, KV, n)
-    lse2 = (lse.float() * log2e).permute(0, 2, 1, 3).reshape(B, KV, n)
-    pos = q_offset + torch.arange(n) // G
-    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))  # (B,KV,T,hd)
-    key = torch.arange(T)
-    bf = lambda t: t.to(torch.bfloat16).float()
-    dq = torch.zeros(B, KV, n, hd)
-    dk = torch.zeros(B, KV, T, hd)
-    dv = torch.zeros_like(dk)
-    parts = {}                                          # qt -> [(kt, dQ)]
-    for k0 in range(0, T, bk):
-        ks = slice(k0, min(T, k0 + bk))
-        for r0 in range(0, n, rows):
-            rs = slice(r0, min(n, r0 + rows))
-            vis = torch.ones(ks.stop - k0, rs.stop - r0, dtype=torch.bool)
-            if causal:
-                vis &= key[ks, None] <= pos[None, rs]
-            if window:
-                vis &= pos[None, rs] - key[ks, None] < window
-            if not vis.any():
-                continue
-            s = torch.einsum("bhkd,bhrd->bhkr", kf[:, :, ks], qr[:, :, rs])
-            x = s * (scale * log2e) - lse2[:, :, None, rs]
-            p = torch.exp2(torch.where(vis, x, torch.tensor(-math.inf)))
-            dp = torch.einsum("bhkd,bhrd->bhkr", vf[:, :, ks], dor[:, :, rs])
-            ds = bf(p * (dp - dsum[:, :, None, rs]))
-            dv[:, :, ks] += torch.einsum("bhkr,bhrd->bhkd", bf(p),
-                                         dor[:, :, rs])
-            dk[:, :, ks] += torch.einsum("bhkr,bhrd->bhkd", ds, qr[:, :, rs])
-            parts.setdefault(r0, []).append(
-                (k0, torch.einsum("bhkr,bhkd->bhrd", ds, kf[:, :, ks])))
-    for r0, got in parts.items():
-        got.sort(key=lambda e: e[0], reverse=descending)
-        acc = got[0][1]
-        for _, part in got[1:]:
-            acc = acc + part
-        dq[:, :, r0:r0 + acc.shape[2]] = acc
-    dq = (dq * scale).reshape(B, KV, S, G, hd).permute(0, 2, 1, 3, 4)
-    back = lambda t: t.permute(0, 2, 1, 3)
-    return (dq.to(q.dtype), back(dk * scale).to(k.dtype),
-            back(dv).to(v.dtype))
-
-
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, *, chunk: int,
                  init_state: Optional[torch.Tensor] = None) -> tuple:

@@ -5,32 +5,34 @@ The CUDA backward (`src/repro_torch/csrc/flash_attention.cu`,
 and walks the query tiles that see them; each step's dQ tile is added
 into an fp32 scratch in a fixed order of key tiles per query tile.
 `kernels/flash_attention.py::plan_launch` owns what it does: the tiles,
-the walk of each key tile, which tile pairs test masks per element, the
-dq order, the ticket order in which blocks take their items, shared
-memory and scratch sizes, and the array the C entry reads
-(`BwdPlan.c_plan`, laid out as `struct BwdPlanC`).  Here the plan is
+the walk of each key tile, which tile pairs test masks per element,
+shared memory and scratch sizes, and the array the C entry reads
+(`BwdPlan.c_plan`, laid out as `struct BwdPlanC`); `BwdPlan` also states
+the kernel's fixed orders, the dq order (key tiles decreasing) and the
+ticket order in which blocks take their items (`bwd_item`, `dq_rank` in
+the source, evaluated here).  Here the plan is
 checked at the path shapes (qwen1.5-0.5b training (8, 4096, 16, 1, 64)
 causal, phi4-mini (1, 512, 8, 3, 128), hymba-1.5b's window 1024 with
 G 5) and every case `chip_smoke.py` holds the kernel to on the card
 (`FLASH_BWD_CASES`), against brute force over positions, exhaustively
 at small sizes and on hypothesis draws over S, T, G, window and offset.
 
-Then `ref.flash_attention_bwd_tiled_ref`, the kernel's arithmetic in
-plain PyTorch (P and dS rounded to bf16 where the kernel's second
-products take them, dq summed in fp32 over key tiles in the plan's
-order), is held against `jax.grad` of the JAX model path's
-`models/attention.py::flash_attention` and against the port's plain
-version `ref.flash_attention_bwd_ref`.
+Then `_tiled_bwd`, the kernel's arithmetic in plain PyTorch launched as
+the plan says (the walks, masks only on edge pairs, P and dS rounded to
+bf16 where the kernel's second products take them, dq summed in fp32
+over key tiles in the plan's order), is held against `jax.grad` of the
+JAX model path's `models/attention.py::flash_attention` and against the
+port's plain version `ref.flash_attention_bwd_ref`.
 
 Tolerance: 2e-2 of the largest entry plus 2e-2 relative, as the kernels
 are held on the card.  bf16 inputs, compared in fp32: the mirror rounds
 P and dS to bf16 (a relative 2^-9 each) and its outputs to bf16 (2^-9 of
-an O(1) result), which the fp32 references do not.  The two dq orders
-differ only by fp32 rounding: one bf16 ulp of each entry once rounded.
+an O(1) result), which the fp32 references do not.
 
 Nothing here builds or loads the CUDA library; every tensor is under a
 few MB (the path shapes are checked tile by tile, without tensors).
 """
+import math
 import re
 import sys
 from functools import lru_cache
@@ -73,9 +75,8 @@ def _path_shapes():
 PLAN_CASES = _path_shapes() + [tuple(c[:9]) for c in FLASH_BWD_CASES]
 
 
-def _plan(case, **kw) -> BwdPlan:
-    B, S, T, KV, G, hd, causal, window, q_offset = case
-    return plan_launch(B, S, T, KV, G, hd, causal, window, q_offset, **kw)
+def _plan(case) -> BwdPlan:
+    return plan_launch(*case)
 
 
 def _rect(p: BwdPlan, qt: int, kt: int):
@@ -109,7 +110,7 @@ def _check_plan(p: BwdPlan) -> None:
             if any_:
                 seen.setdefault(qt, []).append(kt)
     for qt in range(p.n_qt):
-        want = sorted(seen.get(qt, []), reverse=p.descending)
+        want = sorted(seen.get(qt, []), reverse=True)
         lo, hi = p.kt_range(qt)
         assert p.order(qt) == want, qt
         assert (lo > hi) == (not want)
@@ -146,7 +147,6 @@ def test_plan_at_path_shapes_and_chip_cases(case):
     assert p.row_floats == B * KV * p.n_qt * 3 * p.bq
     assert p.counter_ints == B * KV * p.n_qt + 1
     assert p.store_blocks * 256 >= p.acc_floats // 4
-    assert p.descending and p.bh_major
     _check_plan(p)
     if p.items <= 4096:
         _check_tickets(p)
@@ -221,14 +221,27 @@ def test_plan_covers_every_visible_pair(S, T, G, window, q_offset, causal,
     _check_tickets(p)
 
 
-def test_increasing_order_and_key_major_tickets():
-    """The other orders the plan can take keep their promises."""
-    for case in PLAN_CASES[1:]:
-        for desc in (False, True):
-            for bh_major in (False, True):
-                p = _plan(case, descending=desc, bh_major=bh_major)
-                _check_plan(p)
-                _check_tickets(p)
+def _c_function(src: str, name: str) -> str:
+    """The return expression of the one-line device function `name` of
+    the source, as Python (ints are non-negative: / is //)."""
+    body = re.search(rf"\b{name}\([^)]*\) \{{\s*return ([^;]*);", src)
+    return body.group(1).replace("make_int2", "").replace("/", "//")
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=str)
+def test_kernel_orders_are_the_plans(case):
+    """The kernel's ticket decode (`bwd_item`) gives `tickets()`, and its
+    dq rank (`dq_rank`) each key tile's index in `order(qt)`."""
+    src = (ROOT / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    item, rank = (_c_function(src, f) for f in ("bwd_item", "dq_rank"))
+    p = _plan(case)
+    BH, n_kt = p.B * p.KV, p.n_kt
+    assert [eval(item, dict(t=t, n_kt=n_kt, BH=BH))
+            for t in range(p.items)] == list(p.tickets())
+    for qt in range(p.n_qt):
+        lo, hi = p.kt_range(qt)
+        assert [eval(rank, dict(kt=kt, lo=lo, hi=hi))
+                for kt in p.order(qt)] == list(range(hi - lo + 1))
 
 
 def test_c_plan_matches_the_c_struct():
@@ -262,13 +275,76 @@ def test_plan_refuses_what_the_kernel_does_not_take(args):
 # --- the kernel's arithmetic against jax.grad ------------------------------
 
 # (B, S, T, KV, G, hd, causal, window, q_offset): several query and key
-# tiles each, G 3 (pad rows), ragged ends, a window, an offset, T != S
+# tiles each, G 3, 5 and 7 (pad rows), ragged ends, windows, offsets,
+# T != S
 MIRROR_CASES = [
     (1, 300, 300, 2, 3, 64, True, 0, 0),
     (1, 150, 200, 1, 1, 128, True, 70, 40),
     (2, 150, 140, 1, 1, 64, False, 0, 0),
     (1, 60, 290, 1, 3, 128, True, 0, 230),
+    (1, 40, 40, 2, 5, 64, True, 17, 0),
+    (1, 100, 260, 1, 1, 64, True, 64, 150),
+    (2, 33, 33, 1, 7, 128, True, 0, 0),
 ]
+
+
+def _tiled_bwd(p: BwdPlan, q, k, v, o, lse, dout) -> tuple:
+    """The key-major kernel's arithmetic (`flash_bwd_kernel`) launched as
+    plan `p`: for each key tile and each query tile of its walk, S^T and
+    dP^T in fp32, P = exp2(S scale log2e - lse log2e), masked only on the
+    plan's edge pairs, dS = P (dP - D); P and dS rounded to bf16 as the
+    kernel's second products take them; dV += P^T dO, dK += dS^T q in
+    fp32; each query tile's dQ tiles dS k summed in fp32 in the order
+    `p.order(qt)`.  Same contract as `ref.flash_attention_bwd_ref`."""
+    B, S, KV, G, hd = q.shape
+    T, n = k.shape[1], S * G
+    scale = 1.0 / math.sqrt(hd)
+    log2e = 1.4426950408889634
+    rowm = lambda t: t.float().permute(0, 2, 1, 3, 4).reshape(B, KV, n, -1)
+    qr, dor = rowm(q), rowm(dout)
+    dsum = (dout.float() * o.float()).sum(-1)            # (B,S,KV,G)
+    dsum = dsum.permute(0, 2, 1, 3).reshape(B, KV, n)
+    lse2 = (lse.float() * log2e).permute(0, 2, 1, 3).reshape(B, KV, n)
+    pos = p.q_offset + torch.arange(n) // G
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))  # (B,KV,T,hd)
+    key = torch.arange(T)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    dk = torch.zeros(B, KV, T, hd)
+    dv = torch.zeros_like(dk)
+    parts = {}                                   # (qt, kt) -> dQ tile
+    for kt in range(p.n_kt):
+        ks = slice(kt * p.bk, min(T, (kt + 1) * p.bk))
+        for qt in range(*p.walk(kt)):
+            rs = slice(qt * p.rows, min(n, (qt + 1) * p.rows))
+            s = torch.einsum("bhkd,bhrd->bhkr", kf[:, :, ks], qr[:, :, rs])
+            x = s * (scale * log2e) - lse2[:, :, None, rs]
+            if not p.full(qt, kt):
+                vis = torch.ones(x.shape[-2:], dtype=torch.bool)
+                if p.causal:
+                    vis &= key[ks, None] <= pos[None, rs]
+                if p.window:
+                    vis &= pos[None, rs] - key[ks, None] < p.window
+                x = torch.where(vis, x, torch.tensor(-math.inf))
+            pt = torch.exp2(x)
+            dp = torch.einsum("bhkd,bhrd->bhkr", vf[:, :, ks], dor[:, :, rs])
+            ds = bf(pt * (dp - dsum[:, :, None, rs]))
+            dv[:, :, ks] += torch.einsum("bhkr,bhrd->bhkd", bf(pt),
+                                         dor[:, :, rs])
+            dk[:, :, ks] += torch.einsum("bhkr,bhrd->bhkd", ds, qr[:, :, rs])
+            parts[qt, kt] = torch.einsum("bhkr,bhkd->bhrd", ds, kf[:, :, ks])
+    dq = torch.zeros(B, KV, n, hd)
+    for qt in range(p.n_qt):
+        order = p.order(qt)
+        if order:
+            acc = parts.pop((qt, order[0]))
+            for kt in order[1:]:
+                acc = acc + parts.pop((qt, kt))
+            dq[:, :, qt * p.rows:qt * p.rows + acc.shape[2]] = acc
+    assert not parts, "a walked tile pair outside every dq order"
+    dq = (dq * scale).reshape(B, KV, S, G, hd).permute(0, 2, 1, 3, 4)
+    back = lambda t: t.permute(0, 2, 1, 3)
+    return (dq.to(q.dtype), back(dk * scale).to(k.dtype),
+            back(dv).to(v.dtype))
 
 
 def _bf16(rng, shape):
@@ -310,24 +386,10 @@ def _close(got, want, what, tol=TOL):
 @pytest.mark.parametrize("case", MIRROR_CASES, ids=str)
 def test_tiled_mirror_matches_jax_grad_and_the_plain_backward(case):
     args, kw, want = _case(case)
-    p = _plan(case)
-    got = ref.flash_attention_bwd_tiled_ref(*args, rows=p.rows, bk=p.bk,
-                                            descending=p.descending, **kw)
+    got = _tiled_bwd(_plan(case), *args)
     plain = ref.flash_attention_bwd_ref(*args, **kw)
     for name, g, w, pl, t in zip(("dq", "dk", "dv"), got, want, plain,
                                  args[:3]):
         assert g.dtype == torch.bfloat16 and g.shape == t.shape
         _close(g, w, f"{name} {case} against jax.grad")
         _close(g, pl, f"{name} {case} against the plain backward")
-
-
-@pytest.mark.parametrize("case", MIRROR_CASES[:2], ids=str)
-def test_dq_orders_agree_to_fp32_rounding(case):
-    args, kw, _ = _case(case)
-    p = _plan(case)
-    a, b = (ref.flash_attention_bwd_tiled_ref(
-        *args, rows=p.rows, bk=p.bk, descending=d, **kw)[0]
-        for d in (True, False))
-    a, b = a.float(), b.float()
-    top = a.abs().max().item()
-    assert ((a - b).abs() <= 2 ** -7 * a.abs() + 1e-6 * top).all()

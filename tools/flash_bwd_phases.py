@@ -22,10 +22,17 @@ shape, (8, 4096, 16, 1, 64)) by CUDA-graph replay (20 calls, median of
                 tile before the ordered dq add, so the adds race;
   no_dq_add     (the key-major design) no dq add at all.
 
-For the key-major design it then times `full` under each of the plan's
-four orders (dq order decreasing or increasing in the key tile; tickets
-by head or by key tile), causal and not, the outputs of each against the
-default plan's.
+For the key-major design it also builds the three orders the kernel
+does not take, by macros that replace its ticket decode (`bwd_item`)
+and its dq rank (`dq_rank`), and times each beside `full` (dq order
+decreasing in the key tile, tickets by head), causal and not, the
+outputs of each against `full`'s:
+
+  by_key_tile             tickets by key tile: the highest key tile of
+                          every head first;
+  increasing              dq order increasing in the key tile, a head's
+                          key tiles together, the lowest first;
+  increasing_by_key_tile  both.
 
 A variant's time subtracted from `full` is what that part costs where
 the others cannot hide it; the parts overlap, so the differences do not
@@ -80,6 +87,16 @@ VARIANTS = {
                       "#define dq_add(...) ((void)0)"],
     },
 }
+INCREASING = "#define dq_rank(kt, lo, hi) ((kt) - (lo))"
+ORDERS = {       # the key-major design's orders, against `full`
+    "by_key_tile": ["#define bwd_item(t, n_kt, BH) "
+                    "make_int2((t) % (BH), (n_kt) - 1 - (t) / (BH))"],
+    "increasing": ["#define bwd_item(t, n_kt, BH) "
+                   "make_int2((t) / (n_kt), (t) % (n_kt))", INCREASING],
+    "increasing_by_key_tile": ["#define bwd_item(t, n_kt, BH) "
+                               "make_int2((t) % (BH), (t) / (BH))",
+                               INCREASING],
+}
 
 
 def design_of(text: str) -> str:
@@ -107,11 +124,14 @@ def variant_source(text: str, design: str, macros: list) -> str:
 
 
 def build_all(src: Path, design: str) -> dict:
-    """Compile every variant of `design` in parallel; name -> CDLL."""
+    """Compile every variant of `design` (and the key-major design's
+    orders) in parallel; name -> CDLL."""
     text = src.read_text()
     out = ROOT / "build" / "flash_bwd_phases"
     procs = {}
-    for name, macros in VARIANTS[design].items():
+    variants = dict(VARIANTS[design], **(ORDERS if design == "key_major"
+                                         else {}))
+    for name, macros in variants.items():
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
         cu = d / "flash_attention.cu"
@@ -134,9 +154,10 @@ def build_all(src: Path, design: str) -> dict:
     return libs
 
 
-def caller(lib, design: str):
-    """fn(q, k, v, o, lse, do) -> (dq, dk, dv) through `lib`, causal."""
+def caller(lib, design: str, causal: bool = True):
+    """fn(q, k, v, o, lse, do) -> (dq, dk, dv) through `lib`."""
     p, i = ctypes.c_void_p, ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream
     if design == "three_kernels":
         lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [
             ctypes.c_float, p]
@@ -150,16 +171,34 @@ def caller(lib, design: str):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), dsum.data_ptr(), B, S, k.shape[1], KV, G, hd,
-                1, 0, 0, 1.0 / math.sqrt(hd),
-                torch.cuda.current_stream().cuda_stream)
+                int(causal), 0, 0, 1.0 / math.sqrt(hd), stream())
             if rc:
                 raise SystemExit(f"CUDA error {rc}")
             return dq, dk, dv
         return run
-    fa.bind_bwd(lib)
+    lib.flash_attention_bwd.argtypes = [p] * 12 + [i] * 9 + [
+        ctypes.c_float, ctypes.POINTER(ctypes.c_longlong), p]
+    lib.flash_attention_bwd.restype = i
 
     def run(q, k, v, o, lse, do):
-        return fa.launch_bwd(lib, q, k, v, o, lse, do, causal=True)
+        # as the wrapper `fa.flash_attention_bwd` launches it
+        B, S, KV, G, hd = q.shape
+        T = k.shape[1]
+        plan = fa.plan_launch(B, S, T, KV, G, hd, causal)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        rowv = torch.empty(plan.row_floats, device="cuda")
+        acc = torch.empty(plan.acc_floats, device="cuda")
+        counters = torch.zeros(plan.counter_ints, dtype=torch.int32,
+                               device="cuda")
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), rowv.data_ptr(), acc.data_ptr(),
+            counters.data_ptr(), B, S, T, KV, G, hd, int(causal), 0, 0,
+            1.0 / math.sqrt(hd), plan.c_plan, stream())
+        if rc:
+            raise SystemExit(f"CUDA error {rc}")
+        return dq, dk, dv
     return run
 
 
@@ -247,7 +286,7 @@ def main() -> int:
     k, v = r(B, S, KV, hd), r(B, S, KV, hd)
     o, lse = forward(libs["full"], q, k, v)
     args_ = (q, k, v, o, lse, do)
-    runs = {name: caller(lib, design) for name, lib in libs.items()}
+    runs = {name: caller(libs[name], design) for name in VARIANTS[design]}
     full = runs["full"]
     got = full(*args_)
     torch.cuda.synchronize()
@@ -263,30 +302,18 @@ def main() -> int:
         print(f"  {name:12s} {ms:.4f} ms  (full - this {base - ms:+.4f} "
               f"ms, {100 * (base - ms) / base:+.1f}%)")
     if design == "key_major":
-        orders(libs["full"], args_, causal=True)
         o_nc, lse_nc = forward(libs["full"], q, k, v, causal=False)
-        orders(libs["full"], (q, k, v, o_nc, lse_nc, do), causal=False)
+        for causal, a in ((True, args_), (False, (q, k, v, o_nc, lse_nc,
+                                                  do))):
+            want = caller(libs["full"], design, causal)(*a)
+            for name in ("full", *ORDERS):
+                fn = caller(libs[name], design, causal)
+                diff = max((x.float() - y.float()).abs().max().item()
+                           for x, y in zip(fn(*a), want))
+                print(f"  {'causal' if causal else 'non-causal'}: order "
+                      f"{name:22s} {graph_ms(lambda: fn(*a)):.4f} ms (max "
+                      f"difference from full's outputs {diff:.3g})")
     return 0
-
-
-def orders(lib, args, causal: bool) -> None:
-    """`full` under each of the plan's four orders, against the
-    default plan's outputs."""
-    q, k = args[0], args[1]
-    B, S, KV, G, hd = q.shape
-    want = fa.launch_bwd(lib, *args, causal=causal)
-    for desc in (True, False):
-        for bh_major in (True, False):
-            plan = fa.plan_launch(B, S, k.shape[1], KV, G, hd, causal,
-                                  descending=desc, bh_major=bh_major)
-            fn = lambda: fa.launch_bwd(lib, *args, causal=causal, plan=plan)
-            diff = max((x.float() - y.float()).abs().max().item()
-                       for x, y in zip(fn(), want))
-            print(f"  {'causal' if causal else 'non-causal'}: order "
-                  f"{'decreasing' if desc else 'increasing'}, tickets by "
-                  f"{'head' if bh_major else 'key tile'}: {graph_ms(fn):.4f}"
-                  f" ms (max difference from the default plan's outputs "
-                  f"{diff:.3g})")
 
 
 if __name__ == "__main__":
