@@ -39,7 +39,9 @@ the final line is not printed):
    sums its partials in a fixed order, with no atomics);
 5. the kernels at qwen1.5-0.5b's training shapes (B*S = 32,768 rows):
    the `split_matmul` forward ("nn") at every layer product (q/k/v/o,
-   w13, w2), and `split_matmul_dgrad` and `split_matmul_wgrad` there and
+   w13, w2, and the chunked FFN's w13 chunk, d x 2 ff/4), its
+   accumulating form (fp32 acc + x @ w) at the chunked FFN's w2 chunk,
+   and `split_matmul_dgrad` and `split_matmul_wgrad` there and
    at the tied head's CE chunk (8 x 512 rows against the 152,064-row
    embedding, whose forward takes the "nt" layout, checked too), each
    backward against the plain version summed in the plan's split-K
@@ -57,10 +59,11 @@ the final line is not printed):
 6. train qwen1.5-0.5b at full width and depth: plan it with `osdp` for
    train_4k at global batch 8 on a 1x1 mesh with 64 GiB and the h100-sxm
    preset (checkpointing "selective": the search co-decides remat,
-   and picks none when everything fits; a plan that keeps some
-   activations and recomputes others is refused, as selective remat is
-   not ported yet) and print the decisions, remat
-   bits and microbatch; check step 1's loss and every gradient leaf on
+   and picks none when everything fits) and print the decisions, remat
+   bits and microbatch; the plan splits every layer op in 4, so each
+   FFN runs `chunked_ffn` (4 chunks of the hidden, each w2 product
+   added into one fp32 sum by `split_matmul`'s accumulating form); the
+   regrouping copy of w13 is timed; check step 1's loss and every gradient leaf on
    the first 2 layers of the same weights and batch against the plain
    versions on the card (binding: within 4x their own reordering noise
    and at least 2e-2 of a leaf's norm); a repeated forward + backward
@@ -73,7 +76,17 @@ the final line is not printed):
    dgrad, wgrad, flash forward and backward, AdamW, plain torch); then
    3 steps of the same model under global remat (the planner's default
    checkpointing: every layer's forward again in the backward), with
-   their launch counts, step time and peak;
+   their launch counts, step time and peak; 3 steps under the plan the
+   searcher returns at 20 GiB (a selective plan whose kept names tag no
+   product of the layer body), whose losses must equal global remat's
+   bit for bit; 3 steps under a hand-built mixed plan (the attention
+   products kept, the rest recomputed), whose products are counted by
+   tag (a kept one computed once a layer), whose peak must lie between
+   global remat's and remat off's, and whose losses must match remat
+   off's; then a checkpoint round trip at full width and 2 layers: 2
+   steps saving every step, a resume to step 4 in a fresh run, losses
+   equal to an uninterrupted 4-step run bit for bit, MB written and
+   seconds to save and restore, and a corrupted leaf refused;
 7. print a {"kernels": [...]} line, the card's name and power limit, the
    serve and train metrics, and last {"ok": true, "device": {...}}.
 
@@ -109,6 +122,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 ARCHS = ("phi4-mini-3.8b", "mamba2-2.7b")
@@ -124,12 +138,20 @@ LOGIT_FLOOR_FACTOR = 4      # x the plain version's own reordering noise
 TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_BATCH = 8             # x seq 4096: 32,768 tokens a step
 TRAIN_STEPS = 5
-REMAT_STEPS = 3             # the same steps under global remat
+REMAT_STEPS = 3             # the same steps under global remat, and
+                            # under the selective and mixed plans
+TRAIN_SPLIT = 4             # the plan's uniform operator split (phase 5
+                            # checks its chunk shapes; phase 6 the plan)
+SELECTIVE_GIB = 20.0        # below 25 GiB the searcher mixes remat bits
+CKPT_LAYERS = 2             # depth of the checkpoint round trip
+CKPT_STEPS = 2              # steps before the cut; the resume runs to 2x
 GRAD_LAYERS = 2             # depth of the binding gradient check
 GRAD_TOL = 2e-2             # of a gradient leaf's norm, the least tolerance
 SOURCES = {
     "split_matmul": ("src/repro_torch/csrc/split_matmul.cu",
                      "src/repro/kernels/split_matmul.py:39"),
+    "split_matmul_acc": ("src/repro_torch/csrc/split_matmul.cu",
+                         "src/repro/kernels/split_matmul.py:39"),
     "split_matmul_dgrad": ("src/repro_torch/csrc/split_matmul.cu",
                            "src/repro/kernels/split_matmul.py:39"),
     "split_matmul_wgrad": ("src/repro_torch/csrc/split_matmul.cu",
@@ -279,6 +301,50 @@ def check_split_matmul(torch, M, K, N, gen):
                 bound_ms=1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BW),
                 bound_by="operations" if flops / PEAK_BF16
                 > nbytes / PEAK_BW else "bytes")
+
+
+def check_split_matmul_acc(torch, M, K, N, gen):
+    """The accumulating form y = acc + x @ w (fp32 acc and y) at one
+    shape, against its plain version on the same inputs, repeated
+    bit-identically, timed beside its bound and `torch.matmul` of the
+    same product (bf16 out: no single PyTorch call adds the product into
+    an fp32 tensor)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import split_matmul as sm
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
+         ).to(torch.bfloat16)
+    acc = torch.randn(M, N, generator=gen, device="cuda")
+    plan = sm.plan_for(x, w, 512)
+    if plan.variant == "general":
+        _fail(f"split_matmul acc {M}x{K}x{N}: a path shape took the general "
+              f"kernel ({plan.reason})")
+    y = sm.split_matmul(x, w, acc=acc)
+    torch.cuda.synchronize()
+    want = ref.split_matmul_ref(x, w, bk=512, acc=acc)
+    err = (y - want).abs()
+    if y.dtype != torch.float32 or not torch.isfinite(y).all() or (
+            err > KERNEL_TOL + KERNEL_TOL * want.abs()).any():
+        _fail(f"split_matmul acc {M}x{K}x{N}: max error "
+              f"{err.max().item()} beyond {KERNEL_TOL} abs+rel")
+    if not torch.equal(y, sm.split_matmul(x, w, acc=acc)):
+        _fail(f"split_matmul acc {M}x{K}x{N}: two calls on the same inputs "
+              f"differ")
+    kern = lambda: sm.split_matmul(x, w, acc=acc)
+    flops = 2.0 * M * N * K
+    nbytes = 2.0 * (M * K + K * N) + 8.0 * M * N   # acc read, y written
+    bound_ms, bound_by = _bound(flops, nbytes)
+    return dict(shape=[M, K, N], acc=True, max_abs_err=err.max().item(),
+                ms=_graph_ms(torch, kern, [()]),
+                eager_ms=_time_ms(torch, kern, [()]),
+                plain_ms=_time_ms(torch, lambda: ref.split_matmul_ref(
+                    x, w, bk=512, acc=acc), [()], iters=3),
+                library_ms=_graph_ms(torch, lambda: torch.matmul(x, w),
+                                     [()]),
+                bf16_out_ms=_graph_ms(torch, lambda: sm.split_matmul(x, w),
+                                      [()]),
+                variant=plan.variant, bn=plan.bn, splits=plan.splits,
+                blocks=plan.blocks, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_flash(torch, S, gen, KV=8, G=3, hd=128, B=1):
@@ -569,6 +635,18 @@ MATMUL_DESIGN_CASES = (
 )
 
 
+# the accumulating form (fp32 y = acc + x @ w) in each design's epilogue
+# and in the split-K reduce: (M, K, N, dtype, design, what)
+ACC_CASES = (
+    (8, 704, 1024, "bfloat16", "stream", "acc, decode rows, split-K"),
+    (1, 3072, 8192, "bfloat16", "stream", "acc, M = 1, 6 splits"),
+    (256, 8192, 256, "bfloat16", "wgmma", "acc, split-K reduce"),
+    (129, 704, 72, "bfloat16", "wgmma", "acc, ragged M and N"),
+    (100, 36, 20, "bfloat16", "general", "acc, N not a multiple of 8"),
+    (300, 100, 56, "float32", "general", "acc, float32"),
+)
+
+
 def check_matmul_designs(torch, gen) -> int:
     """`split_matmul` off the path in bf16: each case must take the
     design it names (never the general kernel) and agree with the plain
@@ -589,7 +667,24 @@ def check_matmul_designs(torch, gen) -> int:
             _fail(f"split_matmul {M}x{K}x{N} bk={bk} ({what}, {design}, "
                   f"{plan.splits} splits): max error "
                   f"{(y - y_ref).abs().max().item()}")
-    return len(MATMUL_DESIGN_CASES)
+    for M, K, N, dtype, design, what in ACC_CASES:
+        dt = getattr(torch, dtype)
+        x = torch.randn(M, K, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(K, N, generator=gen, device="cuda")
+             / math.sqrt(K)).to(dt)
+        acc = torch.randn(M, N, generator=gen, device="cuda")
+        plan = sm.plan_for(x, w, 512)
+        y = sm.split_matmul(x, w, acc=acc)
+        y_ref = ref.split_matmul_ref(x, w, bk=512, acc=acc)
+        if plan.variant != design or y.dtype != torch.float32 or \
+                not torch.allclose(y, y_ref, atol=KERNEL_TOL,
+                                   rtol=KERNEL_TOL) or \
+                not torch.equal(y, sm.split_matmul(x, w, acc=acc)):
+            _fail(f"split_matmul {M}x{K}x{N} {dtype} ({what}): took "
+                  f"{plan.variant} ({design} expected, {plan.splits} "
+                  f"splits), {y.dtype}, max error "
+                  f"{(y - y_ref).abs().max().item()}, or a repeat differs")
+    return len(MATMUL_DESIGN_CASES) + len(ACC_CASES)
 
 
 @contextlib.contextmanager
@@ -604,8 +699,8 @@ def plain_versions(bk=512, ssd_chunk=None, bq=512):
     names = ("split_matmul", "split_matmul_dgrad", "split_matmul_wgrad",
              "flash_attention", "flash_attention_bwd", "ssd_scan")
     saved = [getattr(ops, n) for n in names]
-    ops.split_matmul = lambda x, w, transpose_w=False, **_: \
-        ref.split_matmul_ref(x, w.t() if transpose_w else w, bk=bk)
+    ops.split_matmul = lambda x, w, transpose_w=False, acc=None, **_: \
+        ref.split_matmul_ref(x, w.t() if transpose_w else w, bk=bk, acc=acc)
     ops.split_matmul_dgrad = lambda dy, w, **kw: \
         ref.split_matmul_dgrad_ref(dy.contiguous(), w, bk=bk, **kw)
     ops.split_matmul_wgrad = lambda x, dy, **kw: \
@@ -721,7 +816,7 @@ def serve_phase(torch, np, arch, args) -> dict:
     L, passes = cfg.n_layers, stats.prefill_steps + stats.decode_steps
     per_pass = L * (4 * cfg.has_attention + 3 * cfg.has_ssm
                     + 2 * bool(cfg.d_ff)) + 1
-    want = {"split_matmul": per_pass * passes,
+    want = {"split_matmul": per_pass * passes, "split_matmul_acc": 0,
             "flash_attention": L * stats.prefill_steps
             if cfg.has_attention else 0,
             "ssd_scan": L * stats.prefill_steps if cfg.has_ssm else 0}
@@ -1284,40 +1379,90 @@ def grad_check(torch, model, params, batch, n_layers) -> dict:
                 leaves=leaves, binding_leaves=binding)
 
 
+def _layer_products(model) -> list:
+    """One layer's forward products as (role, tag, launches): role
+    "split_matmul" or "split_matmul_acc" (the chunked FFN's w2 chunks),
+    tag the name `seg_matmul` gives the output ("" for none: the FFN's
+    plain and chunked products, as in the JAX package).  A single
+    segment is one product named by its path; an input-dim split one
+    named sum of a launch a segment; an output-dim split a named product
+    a segment."""
+    lay = model.pset.layouts
+
+    def seg(path):
+        lo = lay[path]
+        if len(lo.segments) == 1:
+            return [("split_matmul", path, 1)]
+        if lo.spec.zdp_axis - lo.spec.stacked == 0:
+            return [("split_matmul", path, len(lo.segments))]
+        return [("split_matmul", path + sg.key, 1) for sg in lo.segments]
+
+    out = [p for w in ("wq", "wk", "wv", "wo")
+           for p in seg(f"layers/attn/{w}")]
+    cfg = model.cfg
+    g = model._split_g("layers.ffn_w13")
+    if lay["layers/ffn/w13"].is_split or lay["layers/ffn/w2"].is_split:
+        out += seg("layers/ffn/w13") + seg("layers/ffn/w2")
+    elif g > 1 and cfg.d_ff % g == 0:
+        out += [("split_matmul", "", g), ("split_matmul_acc", "", g)]
+    else:
+        out += [("split_matmul", "", 2)]
+    return out
+
+
 def _want_train_launches(built, steps, S) -> tuple:
     """The launches `steps` training steps imply from the plan, by kernel
-    and, for `split_matmul`, by operand layout: each weight segment one
-    forward product (twice a layer under full remat), one dgrad and one
-    wgrad; the head one product a CE chunk and, chunked, its recompute;
-    attention one forward (twice under remat) and one backward a layer;
-    all of it once a microbatch.  A tied head's forward reads the
-    embedding as stored ("nt", as the layers' dgrad) and its dgrad is
-    "nn" (as the layers' forward); every wgrad is "tn".  Layouts are
-    returned for the tied head only (None otherwise)."""
+    and, for `split_matmul`, by operand layout: each layer product
+    (`_layer_products`) once in the forward, again in the backward when
+    the layer's remat recomputes it (all of them under full remat; under
+    a selective policy those whose tag it does not keep), and one dgrad
+    and one wgrad; the head one product a CE chunk and, chunked, its
+    recompute; attention one forward (again under any remat: it carries
+    no tag) and one backward a layer; all of it once a microbatch.  A
+    tied head's forward reads the embedding as stored ("nt", as the
+    layers' dgrad) and its dgrad is "nn" (as the layers' forward); every
+    wgrad is "tn".  Layouts are returned for the tied head only (None
+    otherwise)."""
     from repro_torch.models import transformer as tm
     model, cfg = built.model, built.model.cfg
     lay = model.pset.layouts
-    per_layer = sum(len(lay[p].segments) for p in (
-        "layers/attn/wq", "layers/attn/wk", "layers/attn/wv",
-        "layers/attn/wo", "layers/ffn/w13", "layers/ffn/w2"))
+    prods = _layer_products(model)
+    remat = model.remat
+    again = [p for p in prods if remat is True
+             or (isinstance(remat, tuple) and p[1] not in remat)]
     head_segs = 1 if cfg.tie_embeddings else len(lay["head/out"].segments)
     chunked = (S % tm.CE_CHUNK == 0 and S > tm.CE_CHUNK
                and S * cfg.padded_vocab >= tm.CE_MIN_ELEMS)
     n = steps * max(1, built.run.microbatch)
+    nL = n * cfg.n_layers
     head = n * head_segs * (S // tm.CE_CHUNK if chunked else 1)
-    fwd_layers = 2 if model.remat is True else 1
-    layer_fwd = n * fwd_layers * cfg.n_layers * per_layer
-    layer_bwd = n * cfg.n_layers * per_layer
+    fwd = lambda ps, role: sum(k for r, _, k in ps if r == role)
+    layer_fwd = {r: nL * (fwd(prods, r) + fwd(again, r))
+                 for r in ("split_matmul", "split_matmul_acc")}
+    layer_bwd = nL * sum(k for _, _, k in prods)
     head_fwd = head * (2 if chunked else 1)
-    want = {"split_matmul": layer_fwd + head_fwd,
+    want = {"split_matmul": layer_fwd["split_matmul"] + head_fwd,
+            "split_matmul_acc": layer_fwd["split_matmul_acc"],
             "split_matmul_dgrad": layer_bwd + head,
             "split_matmul_wgrad": layer_bwd + head,
-            "flash_attention": n * fwd_layers * cfg.n_layers,
-            "flash_attention_bwd": n * cfg.n_layers,
+            "flash_attention": nL * (2 if remat else 1),
+            "flash_attention_bwd": nL,
             "ssd_scan": 0}
-    layouts = ({"nn": layer_fwd + head, "nt": layer_bwd + head_fwd,
+    layouts = ({"nn": sum(layer_fwd.values()) + head,
+                "nt": layer_bwd + head_fwd,
                 "tn": layer_bwd + head} if cfg.tie_embeddings else None)
     return want, layouts
+
+
+def _want_product_counts(built, steps) -> dict:
+    """Tagged products computed in `steps` steps, by tag: once a layer in
+    the forward, and again unless the layer's remat keeps the tag."""
+    model = built.model
+    nL = steps * max(1, built.run.microbatch) * model.cfg.n_layers
+    remat = model.remat
+    return {tag: nL * (1 + (remat is True or (isinstance(remat, tuple)
+                                              and tag not in remat)))
+            for _, tag, _ in _layer_products(model) if tag}
 
 
 def train_phase(torch, args) -> dict:
@@ -1326,7 +1471,9 @@ def train_phase(torch, args) -> dict:
     the plain versions on a shallow cut and a repeated step for
     bit-identity, then train TRAIN_STEPS steps through `train()` with the
     launch counts zeroed just before and read just after, and profile
-    one more step."""
+    one more step; then global remat, the searched selective plan, a
+    mixed plan and a checkpoint round trip (`_remat_runs`,
+    `checkpoint_round_trip`)."""
     from repro_torch.configs import (DeviceInfo, MeshConfig, RunConfig,
                                      get_arch, get_shape)
     from repro_torch.core.api import osdp
@@ -1354,8 +1501,13 @@ def train_phase(torch, args) -> dict:
     built = build_model(run, plan)
     model = built.model
     B, S = shape.global_batch, shape.seq_len
+    split = model._split_g("layers.ffn_w13")
+    if split != TRAIN_SPLIT:
+        _fail(f"train: the plan splits the FFN in {split}, phase 5 checked "
+              f"the chunk shapes of a split in {TRAIN_SPLIT}")
     print(f"train {TRAIN_ARCH}: remat {model.remat}, microbatch "
-          f"{run.microbatch}, batch {B} x seq {S}")
+          f"{run.microbatch}, batch {B} x seq {S}, FFN in {split} chunks "
+          f"(chunked_ffn)")
     params = built.init(args.seed, "cuda")
     n_params = sum(p.numel() for p in params.values())
     ds = Dataset(cfg, shape, seed=args.seed)
@@ -1414,12 +1566,14 @@ def train_phase(torch, args) -> dict:
         print(f"  step {i}: loss {l:.4f} grad_norm {g:.4f} {ms:.1f} ms "
               f"({tokens / (ms / 1e3):.0f} tok/s)")
     # one more step under the profiler, by bucket
-    opt = init_state(params)
+    # (on a copy: the runs below start from the same weights as this one)
+    pp = {k: v.detach().clone() for k, v in params.items()}
+    opt = init_state(pp)
     got = {}
     out["profile_step"] = prof = profile_step(
-        torch, lambda: got.update(g=loss_and_grads(model, params, batch)[2]),
-        lambda: apply_update(AdamWConfig(), params, got["g"], opt, 1.0))
-    del got
+        torch, lambda: got.update(g=loss_and_grads(model, pp, batch)[2]),
+        lambda: apply_update(AdamWConfig(), pp, got["g"], opt, 1.0))
+    del got, pp, opt
     print("  profiled step (device ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in prof.items() if k != "top_plain_ops"))
     print("  plain-torch ops with the most device time (ms, calls): "
@@ -1429,33 +1583,240 @@ def train_phase(torch, args) -> dict:
           f"ms, {out['tokens_per_s']:.0f} tok/s, MFU {out['mfu']:.3f}, peak "
           f"{peak:.2f} GiB; launches {counts}; split_matmul by layout "
           f"{layouts}")
-    # the same steps under global remat (the planner's default
-    # checkpointing): every layer's forward runs again in the backward
+    out["w13_regroup"] = w13_regroup(torch, cfg, split)
+    print(f"  w13 regrouped into {split} chunks: "
+          f"{out['w13_regroup']['fwd_ms']:.4f} ms a layer, its gradient "
+          f"{out['w13_regroup']['bwd_ms']:.4f} ms; "
+          f"{out['w13_regroup']['step_ms']:.3f} ms a step")
     torch.cuda.empty_cache()
-    remat = dataclasses.replace(built, model=dataclasses.replace(
-        model, remat=True))
+    out.update(_remat_runs(torch, args, built, plan, params, res, out,
+                           batch))
+    torch.cuda.empty_cache()
+    out["checkpoint"] = checkpoint_round_trip(torch, args, built, params)
+    return out
+
+
+def w13_regroup(torch, cfg, g) -> dict:
+    """Device time of `chunked_ffn`'s one copy of w13 a layer (d x 2 ff
+    regrouped into g contiguous (d, 2 ff / g) chunks) and of its
+    gradient's way back (the g chunk gradients stacked and regrouped),
+    by CUDA-graph replay; a step takes each once a layer (the forward
+    copy twice under remat)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    c = ff // g
+    w13 = torch.randn(d, 2 * ff, device="cuda").bfloat16()
+    grads = [torch.randn(d, 2 * c, device="cuda").bfloat16()
+             for _ in range(g)]
+    fwd = lambda: w13.reshape(d, 2, g, c).permute(2, 0, 1, 3).reshape(
+        g, d, 2 * c).unbind(0)
+    bwd = lambda: torch.stack(grads).reshape(g, d, 2, c).permute(
+        1, 2, 0, 3).reshape(d, 2 * ff)
+    f_ms, b_ms = _graph_ms(torch, fwd, [()]), _graph_ms(torch, bwd, [()])
+    return dict(g=g, fwd_ms=f_ms, bwd_ms=b_ms,
+                step_ms=cfg.n_layers * (f_ms + b_ms))
+
+
+def _train_run(torch, built, steps, params, seed, what, S,
+               batch=None) -> dict:
+    """`steps` steps of `built` through `train()` from `params`, with the
+    kernel launches and the tagged products counted from zero and held
+    to what the plan implies, and the peak memory; with `batch`, one
+    more forward + backward under the profiler: its device time and the
+    share of its wall time the device was busy."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import loss_and_grads, train
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    res_r = train(remat, REMAT_STEPS, seed=args.seed, warmup=1,
-                  device="cuda", params=params, log_every=0)
-    counts_r = ops.launch_counts()
-    want_r, _ = _want_train_launches(remat, REMAT_STEPS, S)
-    if counts_r != want_r or not all(math.isfinite(x)
-                                     for x in res_r.losses):
-        _fail(f"train with remat: launches {counts_r} (the plan's steps "
-              f"need {want_r}), losses {res_r.losses}")
-    ms_r = sorted(res_r.step_ms[1:])[len(res_r.step_ms[1:]) // 2]
-    out["remat_true"] = dict(
-        steps=res_r.steps, losses=res_r.losses, step_ms=res_r.step_ms,
-        median_step_ms=ms_r, tokens_per_s=tokens / (ms_r / 1e3),
-        mfu=flops / (PEAK_BF16 * ms_r / 1e3),
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches=counts_r)
-    print(f"train {TRAIN_ARCH} with remat: {res_r.steps} steps, median "
-          f"step {ms_r:.1f} ms, {out['remat_true']['tokens_per_s']:.0f} "
-          f"tok/s, MFU {out['remat_true']['mfu']:.3f}, peak "
-          f"{out['remat_true']['peak_mem_gib']:.2f} GiB; launches "
-          f"{counts_r}")
+    res = train(built, steps, seed=seed, warmup=1, device="cuda",
+                params=params, log_every=0)
+    counts, products = ops.launch_counts(), dict(ops.product_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want, _ = _want_train_launches(built, steps, S)
+    want_p = _want_product_counts(built, steps)
+    if counts != want or products != want_p or not all(
+            math.isfinite(x) for x in res.losses):
+        _fail(f"train {what}: launches {counts} (the plan's steps need "
+              f"{want}), tagged products {products} (need {want_p}), "
+              f"losses {res.losses}")
+    ms = sorted(res.step_ms[1:])[len(res.step_ms[1:]) // 2]
+    out = dict(steps=res.steps, losses=res.losses, step_ms=res.step_ms,
+               median_step_ms=ms, peak_mem_gib=peak, launches=counts,
+               products=products, remat=str(built.model.remat))
+    if batch is not None:
+        del res
+        dev_ms, _, wall_ms, _ = _profiled(
+            torch, lambda: loss_and_grads(built.model, params, batch))
+        out.update(grads_device_ms=dev_ms, grads_wall_ms=wall_ms,
+                   grads_busy_share=dev_ms / wall_ms)
+    return out
+
+
+def _remat_runs(torch, args, built, plan, params, res, out,
+                batch) -> dict:
+    """REMAT_STEPS steps of the same weights and batches under global
+    remat (the planner's default checkpointing), under the plan the
+    searcher returns at SELECTIVE_GIB (selective: it keeps names that
+    tag no product of the layer, so it must give global remat's losses
+    bit for bit) and under a mixed plan (the attention products kept,
+    the FFN recomputed), whose peak must lie between global remat's and
+    remat off's and whose losses must match remat off's."""
+    from repro_torch.configs import DeviceInfo, RunConfig, get_arch
+    from repro_torch.core.api import osdp
+    from repro_torch.core.cost_model import Decision
+    from repro_torch.models.registry import build_model
+    model, S = built.model, built.run.shape.seq_len
+    tokens = built.run.shape.global_batch * S
+    flops = out["model_flops_per_step"]
+    runs = {}
+
+    def report(name, r):
+        r.update(tokens_per_s=tokens / (r["median_step_ms"] / 1e3),
+                 mfu=flops / (PEAK_BF16 * r["median_step_ms"] / 1e3))
+        print(f"train {TRAIN_ARCH} {name} (remat {r['remat'][:60]}): "
+              f"{r['steps']} steps, median step {r['median_step_ms']:.1f} "
+              f"ms, {r['tokens_per_s']:.0f} tok/s, MFU {r['mfu']:.3f}, "
+              f"peak {r['peak_mem_gib']:.2f} GiB; losses "
+              + " ".join(f"{x:.6f}" for x in r["losses"])
+              + f"; launches {r['launches']}; a profiled forward + "
+              f"backward: device {r['grads_device_ms']:.2f} ms of "
+              f"{r['grads_wall_ms']:.2f} (busy {r['grads_busy_share']:.2f})")
+        runs[name] = r
+
+    remat = dataclasses.replace(built, model=dataclasses.replace(
+        model, remat=True))
+    report("remat_true", _train_run(torch, remat, REMAT_STEPS, params,
+                                    args.seed, "with remat", S, batch))
+    runs["remat_true"]["bit_identical_to_remat_off"] = (
+        runs["remat_true"]["losses"] == res.losses[:REMAT_STEPS])
+    torch.cuda.empty_cache()
+
+    # planned at full depth (a depth cut fits in any limit), applied to
+    # the model as built
+    sel_plan = osdp(get_arch(TRAIN_ARCH), built.run.shape, built.run.mesh,
+                    memory_limit_gib=SELECTIVE_GIB,
+                    device=DeviceInfo.preset("h100-sxm"),
+                    checkpointing="selective")
+    sel = build_model(RunConfig(model=built.run.model, shape=built.run.shape,
+                                mesh=built.run.mesh,
+                                osdp=sel_plan.run.osdp), sel_plan)
+    if not isinstance(sel.model.remat, tuple) or \
+            sel.model._split_g("layers.ffn_w13") != TRAIN_SPLIT:
+        _fail(f"train: the {SELECTIVE_GIB} GiB plan compiles to remat "
+              f"{sel.model.remat} and split "
+              f"{sel.model._split_g('layers.ffn_w13')}, not a selective "
+              f"policy over a split in {TRAIN_SPLIT}")
+    print(f"  {SELECTIVE_GIB} GiB plan: " + "; ".join(
+        f"{op} {dec.modes[0]} x{dec.split} remat {dec.remat}"
+        for op, dec in sel_plan.decisions.items())
+        + f"; est. {sel_plan.cost.memory / 2**30:.2f} GiB")
+    report("selective", _train_run(torch, sel, REMAT_STEPS, params,
+                                   args.seed, "selective", S, batch))
+    runs["selective"].update(plan_gib=SELECTIVE_GIB,
+                             plan_est_mem_gib=sel_plan.cost.memory / 2**30)
+    if runs["selective"]["losses"] != runs["remat_true"]["losses"]:
+        _fail(f"train selective: losses {runs['selective']['losses']} differ "
+              f"from global remat's {runs['remat_true']['losses']}")
+    torch.cuda.empty_cache()
+
+    layer_ops = ("layers.attn_qkv", "layers.attn_out", "layers.ffn_w13",
+                 "layers.ffn_w2")
+    mixed_dec = {op: Decision(op, d.modes, (op not in layer_ops[:2],)
+                              * d.split if op in layer_ops else d.remat)
+                 for op, d in plan.decisions.items()}
+    mixed = build_model(built.run, SimpleNamespace(decisions=mixed_dec))
+    report("mixed", _train_run(torch, mixed, REMAT_STEPS, params,
+                               args.seed, "mixed", S, batch))
+    m = runs["mixed"]
+    lo, hi = runs["remat_true"]["peak_mem_gib"], out["peak_mem_gib"]
+    if not lo < m["peak_mem_gib"] < hi:
+        _fail(f"train mixed: peak {m['peak_mem_gib']:.2f} GiB not between "
+              f"global remat's {lo:.2f} and remat off's {hi:.2f}")
+    off = res.losses[:REMAT_STEPS]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(m["losses"], off))
+    if worst > 1e-3:
+        _fail(f"train mixed: losses {m['losses']} off remat off's {off} by "
+              f"{worst:.3g} relative (tol 1e-3)")
+    m.update(loss_rel_err_vs_remat_off=worst,
+             bit_identical_to_remat_off=m["losses"] == off,
+             kept=sorted(t for t, n in m["products"].items()
+                         if n == REMAT_STEPS * model.cfg.n_layers))
+    print(f"  mixed plan: kept products {m['kept']} computed once a layer "
+          f"({m['products']}); losses vs remat off: {worst:.3g} relative"
+          f"{' (bit-identical)' if m['bit_identical_to_remat_off'] else ''}")
+    return runs
+
+
+def checkpoint_round_trip(torch, args, built, params) -> dict:
+    """At full width and CKPT_LAYERS layers: CKPT_STEPS steps saving every
+    step, then a fresh `train(resume=True)` to twice that, against an
+    uninterrupted run: the losses equal bit for bit.  Saves and restores
+    are timed and the bytes written counted; a corrupted leaf of the
+    latest step must be refused.  The checkpoint directory is removed
+    afterwards."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import train
+    cfg = dataclasses.replace(built.run.model, n_layers=min(
+        CKPT_LAYERS, built.run.model.n_layers))
+    cut = build_model(dataclasses.replace(built.run, model=cfg),
+                      SimpleNamespace(decisions=built.model.decisions))
+    p = {k: (v[:cfg.n_layers] if k.startswith("layers/") else v)
+         for k, v in params.items()}
+    kw = dict(seed=args.seed, warmup=1, device="cuda", params=p,
+              log_every=0, print_fn=lambda *a: None)
+    full = train(cut, 2 * CKPT_STEPS, **kw)
+    saves, restores = [], []
+    save, restore = ckpt_io.save, ckpt_io.restore
+
+    def timed(fn, into):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            into.append(time.perf_counter() - t)
+            return r
+        return inner
+    ckpt_io.save, ckpt_io.restore = timed(save, saves), timed(restore,
+                                                               restores)
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "build")
+    try:
+        first = train(cut, CKPT_STEPS, ckpt_dir=d, ckpt_every=1,
+                      keep_last=2, **kw)
+        step_dir = Path(d) / f"step_{CKPT_STEPS:08d}"
+        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        leaves = len(list(step_dir.glob("*.npy")))
+        rest = train(cut, 2 * CKPT_STEPS, ckpt_dir=d, resume=True, **kw)
+        if rest.start_step != CKPT_STEPS or \
+                first.losses + rest.losses != full.losses:
+            _fail(f"checkpoint: {first.losses} + resumed {rest.losses} "
+                  f"(from step {rest.start_step}) differ from the "
+                  f"uninterrupted run's {full.losses}")
+        leaf = Path(d) / f"step_{2 * CKPT_STEPS:08d}" / "__0__embed__tok.npy"
+        data = bytearray(leaf.read_bytes())
+        data[-5] ^= 0x40
+        leaf.write_bytes(bytes(data))
+        try:
+            train(cut, 2 * CKPT_STEPS + 1, ckpt_dir=d, resume=True, **kw)
+            _fail("checkpoint: a corrupted leaf was restored")
+        except ckpt_io.CheckpointCorruptError as e:
+            refusal = str(e).splitlines()[0][:160]
+    finally:
+        ckpt_io.save, ckpt_io.restore = save, restore
+        shutil.rmtree(d, ignore_errors=True)
+    out = dict(n_layers=cfg.n_layers, steps=2 * CKPT_STEPS,
+               losses=full.losses, resumed_from=rest.start_step,
+               leaves=leaves, mb_written=nbytes / 1e6, save_s=saves,
+               restore_s=restores, refusal=refusal)
+    print(f"  checkpoint ({cfg.n_layers} layers, full width): {leaves} "
+          f"leaves, {nbytes / 1e6:.1f} MB a step; save "
+          + ", ".join(f"{t:.2f}" for t in saves) + " s; restore "
+          + ", ".join(f"{t:.2f}" for t in restores) + " s; resumed at step "
+          f"{rest.start_step}, losses bit-identical to the uninterrupted "
+          f"run; corrupted leaf refused: {refusal}")
     return out
 
 
@@ -1556,7 +1917,9 @@ def main(argv=None) -> int:
     n_opt = check_options(torch, gen)
     print(f"  options: {n_opt} cases off the serve paths (f32, ragged, "
           f"each matmul design at M 1..65, K slices and splits, N against "
-          f"a 128 tile, hd 64, G 1 and 4, windows, offsets, non-causal, "
+          f"a 128 tile, the accumulating form in every design and the "
+          f"split-K reduce ({len(ACC_CASES)} cases), hd 64, G 1 and 4, "
+          f"windows, offsets, non-causal, "
           f"scan init states, hymba's scan shapes, {len(SSD_CASES)} scan "
           f"cases: " + "; ".join(c[-1] for c in SSD_CASES) + ") agree with "
           f"the plain versions")
@@ -1576,6 +1939,15 @@ def main(argv=None) -> int:
         for role in ("dgrad", "wgrad"):
             bwd[f"split_matmul_{role}"].append(
                 check_matmul_grad(torch, role, rows, K, N, gen))
+    # the chunked FFN of the plan's uniform split: the w13 chunk (d x 2c),
+    # the w2 chunk (c x d) added into the fp32 sum, their dgrad / wgrad
+    c = ffq // TRAIN_SPLIT
+    mm_train.append(check_split_matmul(torch, rows, dq, 2 * c, gen))
+    acc_train = [check_split_matmul_acc(torch, rows, c, dq, gen)]
+    for K, N in ((dq, 2 * c), (c, dq)):
+        for role in ("dgrad", "wgrad"):
+            bwd[f"split_matmul_{role}"].append(
+                check_matmul_grad(torch, role, rows, K, N, gen))
     for role in ("dgrad", "wgrad"):            # the tied head, a CE chunk
         bwd[f"split_matmul_{role}"].append(check_matmul_grad(
             torch, role, head_rows, dq, qw.padded_vocab, gen,
@@ -1584,7 +1956,8 @@ def main(argv=None) -> int:
                                  qw.padded_vocab, gen, transpose_w=True)
     bwd["flash_attention_bwd"] = [check_flash_bwd(
         torch, gen, TRAIN_BATCH, 4096, kv_heads, group, qw.resolved_head_dim)]
-    fwd = {"split_matmul": mm_train, "flash_attention": fl_train}
+    fwd = {"split_matmul": mm_train, "split_matmul_acc": acc_train,
+           "flash_attention": fl_train}
     for name, rows_ in list(fwd.items()) + list(bwd.items()):
         for r in rows_ + ([head_fwd] if name == "split_matmul_wgrad" else []):
             lib = f"{r['library_ms']:.4f} ms"
@@ -1593,6 +1966,8 @@ def main(argv=None) -> int:
                       else "")
             label = (name if r is not head_fwd
                      else "split_matmul (tied head, nt)")
+            if r.get("acc"):
+                design += f" (bf16 out {r['bf16_out_ms']:.4f} ms)"
             print(f"  {label:19s} {str(r['shape']):22s}{design} err "
                   f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms (eager "
                   f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
@@ -1639,6 +2014,7 @@ def main(argv=None) -> int:
 
     # every path shape each kernel was checked and timed at
     checked = {"split_matmul": mm + mm_mam + mm_train + [head_fwd],
+               "split_matmul_acc": acc_train,
                "flash_attention": fl + fl_train, "ssd_scan": ssd,
                **bwd}
 
@@ -1661,6 +2037,8 @@ def main(argv=None) -> int:
 
     # representative shapes: the decode head product, the full prompt
     kernels = [entry("split_matmul", mm[-1]),
+               # the chunked FFN's w2 chunk added into the fp32 sum
+               entry("split_matmul_acc", acc_train[0]),
                entry("flash_attention", fl[-1]),
                dict(entry("ssd_scan", ssd[1]),
                     kernels_per_call=ssd_design["kernels_per_call"],
@@ -1690,6 +2068,19 @@ def main(argv=None) -> int:
           f"{tr['median_step_ms']:.1f} ms, {tr['tokens_per_s']:.0f} tok/s, "
           f"MFU {tr['mfu']:.4f}, peak {tr['peak_mem_gib']:.2f} GiB, losses "
           + " ".join(f"{x:.4f}" for x in tr["losses"]))
+    for name in ("remat_true", "selective", "mixed"):
+        r = tr[name]
+        print(f"train metrics {TRAIN_ARCH} {name} ({report['card']}): "
+              f"median step {r['median_step_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tok/s, MFU {r['mfu']:.4f}, peak "
+              f"{r['peak_mem_gib']:.2f} GiB, losses "
+              + " ".join(f"{x:.4f}" for x in r["losses"]))
+    ck = tr["checkpoint"]
+    print(f"checkpoint metrics {TRAIN_ARCH} ({ck['n_layers']} layers, "
+          f"{report['card']}): {ck['mb_written']:.1f} MB a step, save "
+          f"{min(ck['save_s']):.2f}-{max(ck['save_s']):.2f} s, restore "
+          f"{min(ck['restore_s']):.2f}-{max(ck['restore_s']):.2f} s, resume "
+          f"bit-identical")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

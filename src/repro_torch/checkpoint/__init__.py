@@ -1,0 +1,1 @@
+"""Crash-safe checkpoints in the JAX package's on-disk format."""

@@ -13,6 +13,8 @@ from repro_torch.core.hybrid import (  # noqa: F401
     tp_activation_time)
 from repro_torch.core.ilp import (  # noqa: F401
     HAVE_SCIPY_MILP, ILPSolve, solve_ilp)
+from repro_torch.core.operator_split import (  # noqa: F401
+    chunked_ffn, chunked_matmul)
 from repro_torch.core.plan import Plan, make_plan  # noqa: F401
 from repro_torch.core.search import (  # noqa: F401
     SearchResult, schedule, search_plan)

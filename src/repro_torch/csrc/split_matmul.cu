@@ -65,6 +65,16 @@
 // against 448 MB of bytes, 0.134 ms.  A dimension not a multiple of 8, a
 // misaligned pointer or float32 takes a strided CUDA-core kernel instead.
 //
+// Accumulating form, y_f32 = acc + x @ w (forward layout only): the TPU
+// kernel's fp32 K-slice accumulator carried across calls, which is §3.3's
+// slice-and-sum as `core/operator_split.py` runs it (a chunked FFN adds each
+// chunk's h_j @ w2_j into one fp32 sum and casts once at the end).  Every
+// design takes it in its epilogue: where it would cast its fp32 sum to bf16
+// it reads the fp32 tile of `acc` and writes acc + sum as fp32 instead; the
+// split-K reduce adds `acc` to the sum of its partials the same way.  The
+// products are unchanged, so it costs the fp32 tile read and the wider
+// write: 8 bytes an output element more than a bf16 product.
+//
 // In (a) and (b) each slice is walked in steps of 64 from its start
 // (rounded down to a multiple of 8 for 16-byte aligned copies); a step's
 // columns outside the slice are cut (weight rows zero in (a), x columns
@@ -117,9 +127,9 @@ __device__ __forceinline__ void load8(__nv_bfloat16* dst,
 
 __global__ void __launch_bounds__(THREADS)
 split_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ w,
-                         __nv_bfloat16* __restrict__ y, int M, int N, int K,
-                         int kslice, int vec_x, int vec_w) {
+                         const __nv_bfloat16* __restrict__ w, void* y,
+                         const float* c_in, int M, int N, int K, int kslice,
+                         int vec_x, int vec_w) {
   __shared__ __align__(32) __nv_bfloat16 As[BM * A_LD];
   __shared__ __align__(32) __nv_bfloat16 Bs[BK * B_LD];
   __shared__ __align__(32) float Cs[BM * C_LD];
@@ -187,8 +197,12 @@ split_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   for (int e = tid; e < BM * BN; e += THREADS) {
     const int r = e / BN;
     const int c = e % BN;
-    if (row0 + r < M && col0 + c < N)
-      y[(size_t)(row0 + r) * N + col0 + c] = __float2bfloat16(Cs[r * C_LD + c]);
+    if (row0 + r >= M || col0 + c >= N) continue;
+    const size_t o = (size_t)(row0 + r) * N + col0 + c;
+    if (c_in)   // accumulating form: fp32 out
+      reinterpret_cast<float*>(y)[o] = c_in[o] + Cs[r * C_LD + c];
+    else
+      reinterpret_cast<__nv_bfloat16*>(y)[o] = __float2bfloat16(Cs[r * C_LD + c]);
   }
 }
 
@@ -196,8 +210,8 @@ split_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 // 4x4 patch of the 64x64 tile.
 __global__ void __launch_bounds__(256)
 split_matmul_f32_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w, float* __restrict__ y,
-                        int M, int N, int K, int kslice) {
+                        const float* __restrict__ w, float* y,
+                        const float* c_in, int M, int N, int K, int kslice) {
   constexpr int FK = 16;
   __shared__ float As[FK][BM + 1];   // transposed x tile
   __shared__ float Bs[FK][BN];
@@ -241,7 +255,9 @@ split_matmul_f32_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gr = row0 + tr + i, gc = col0 + tc + j;
-      if (gr < M && gc < N) y[(size_t)gr * N + gc] = acc[i][j];
+      if (gr >= M || gc >= N) continue;
+      const size_t o = (size_t)gr * N + gc;
+      y[o] = c_in ? c_in[o] + acc[i][j] : acc[i][j];
     }
 }
 
@@ -301,9 +317,9 @@ struct Stream {
 template <int BN, int MT>
 __global__ void __launch_bounds__(Stream<BN, MT>::THREADS)
 split_matmul_stream_kernel(const bf16* __restrict__ x,
-                           const bf16* __restrict__ w, bf16* __restrict__ y,
-                           float* __restrict__ ws, int M, int N, int K,
-                           int kslice, int sps) {
+                           const bf16* __restrict__ w, void* y,
+                           float* __restrict__ ws, const float* c_in, int M,
+                           int N, int K, int kslice, int sps) {
   using namespace hopper;
   using P = Stream<BN, MT>;
   extern __shared__ __align__(16) bf16 smem[];
@@ -402,8 +418,10 @@ split_matmul_stream_kernel(const bf16* __restrict__ x,
     float s = 0.0f;
 #pragma unroll
     for (int g = 0; g < P::KG; ++g) s += red[((size_t)g * BN + n) * P::MP + m];
-    if (ws) ws[((size_t)split * M + m) * N + n0 + n] = s;
-    else y[(size_t)m * N + n0 + n] = __float2bfloat16(s);
+    const size_t o = (size_t)m * N + n0 + n;
+    if (ws) ws[(size_t)split * M * N + o] = s;
+    else if (c_in) reinterpret_cast<float*>(y)[o] = c_in[o] + s;
+    else reinterpret_cast<bf16*>(y)[o] = __float2bfloat16(s);
   }
 }
 
@@ -456,8 +474,8 @@ template <int BN, int L>
 __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
                                         uint64_t* empty, const Steps& st,
                                         int tid, int m0, int n0, int split,
-                                        bf16* __restrict__ y,
-                                        float* __restrict__ ws, int M, int N,
+                                        void* y, float* __restrict__ ws,
+                                        const float* c_in, int M, int N,
                                         int K) {
   using namespace hopper;
   constexpr int STAGE_BYTES = Wg<BN>::STAGE_BYTES;
@@ -536,11 +554,16 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
       const int row = row_a + 8 * h;
       if (row >= M) continue;
       const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+      const size_t o = (size_t)row * N + col;
       if (ws) {
-        *reinterpret_cast<float2*>(ws + ((size_t)split * M + row) * N + col) =
+        *reinterpret_cast<float2*>(ws + (size_t)split * M * N + o) =
             make_float2(v0, v1);
+      } else if (c_in) {              // accumulating form: fp32 out
+        const float2 a = *reinterpret_cast<const float2*>(c_in + o);
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(y) + o) =
+            make_float2(a.x + v0, a.y + v1);
       } else {
-        *reinterpret_cast<uint32_t*>(y + (size_t)row * N + col) =
+        *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(y) + o) =
             pack_bf16(v0, v1);
       }
     }
@@ -551,8 +574,8 @@ template <int BN, int L>
 __global__ void __launch_bounds__(384, 1)
 split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                           const __grid_constant__ CUtensorMap tw,
-                          bf16* __restrict__ y, float* __restrict__ ws, int M,
-                          int N, int K, int kslice, int sps) {
+                          void* y, float* __restrict__ ws, const float* c_in,
+                          int M, int N, int K, int kslice, int sps) {
   using namespace hopper;
   constexpr int STAGE_BYTES = Wg<BN>::STAGE_BYTES;
   constexpr int STAGES = Wg<BN>::STAGES;
@@ -615,15 +638,16 @@ split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     }
   } else {
     setmaxnreg_inc<232>();
-    consume<BN, L>(smem, full, empty, st, tid, m0, n0, split, y, ws, M, N,
-                   K);
+    consume<BN, L>(smem, full, empty, st, tid, m0, n0, split, y, ws, c_in, M,
+                   N, K);
   }
 }
 
-// --- split-K reduction: y = sum over splits, in split order, cast ------------
+// --- split-K reduction: y = sum over splits, in split order, cast; in the
+// accumulating form y = acc + that sum, in fp32 ----------------------------
 
 __global__ void split_matmul_reduce_kernel(const float4* __restrict__ ws,
-                                           uint2* __restrict__ y,
+                                           void* y, const float4* c_in,
                                            long long n4, int splits) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
@@ -635,23 +659,30 @@ __global__ void split_matmul_reduce_kernel(const float4* __restrict__ ws,
       s.z += t.z;
       s.w += t.w;
     }
-    y[i] = make_uint2(hopper::pack_bf16(s.x, s.y), hopper::pack_bf16(s.z, s.w));
+    if (c_in) {
+      const float4 a = c_in[i];
+      reinterpret_cast<float4*>(y)[i] =
+          make_float4(a.x + s.x, a.y + s.y, a.z + s.z, a.w + s.w);
+    } else {
+      reinterpret_cast<uint2*>(y)[i] = make_uint2(
+          hopper::pack_bf16(s.x, s.y), hopper::pack_bf16(s.z, s.w));
+    }
   }
 }
 
-int launch_reduce(const float* ws, void* y, int M, int N, int splits,
-                  cudaStream_t stream) {
+int launch_reduce(const float* ws, void* y, const float* acc, int M, int N,
+                  int splits, cudaStream_t stream) {
   const long long n4 = (long long)M * N / 4;   // N % 8 == 0
   const int blocks = (int)min((n4 + 255) / 256, (long long)132 * 8);
   split_matmul_reduce_kernel<<<blocks, 256, 0, stream>>>(
-      (const float4*)ws, (uint2*)y, n4, splits);
+      (const float4*)ws, y, (const float4*)acc, n4, splits);
   return (int)cudaGetLastError();
 }
 
 template <int BN, int MT>
-int launch_stream(const void* x, const void* w, void* y, float* ws, int M,
-                  int N, int K, int kslice, int splits, int sps,
-                  cudaStream_t stream) {
+int launch_stream(const void* x, const void* w, void* y, float* ws,
+                  const float* acc, int M, int N, int K, int kslice,
+                  int splits, int sps, cudaStream_t stream) {
   using P = Stream<BN, MT>;
   static bool attr = false;
   if (!attr) {
@@ -663,20 +694,20 @@ int launch_stream(const void* x, const void* w, void* y, float* ws, int M,
   }
   const dim3 grid((N + BN - 1) / BN, splits);
   split_matmul_stream_kernel<BN, MT><<<grid, P::THREADS, P::SMEM, stream>>>(
-      (const bf16*)x, (const bf16*)w, (bf16*)y, splits > 1 ? ws : nullptr, M,
-      N, K, kslice, sps);
+      (const bf16*)x, (const bf16*)w, y, splits > 1 ? ws : nullptr, acc, M, N,
+      K, kslice, sps);
   return (int)cudaGetLastError();
 }
 
 template <int BN>
-int launch_stream_m(const void* x, const void* w, void* y, float* ws, int M,
-                    int N, int K, int kslice, int splits, int sps,
-                    cudaStream_t st) {
+int launch_stream_m(const void* x, const void* w, void* y, float* ws,
+                    const float* acc, int M, int N, int K, int kslice,
+                    int splits, int sps, cudaStream_t st) {
   const int mt = (M + 7) / 8;
-  if (mt <= 1) return launch_stream<BN, 1>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
-  if (mt <= 2) return launch_stream<BN, 2>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
-  if (mt <= 4) return launch_stream<BN, 4>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
-  if (mt <= 8) return launch_stream<BN, 8>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+  if (mt <= 1) return launch_stream<BN, 1>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
+  if (mt <= 2) return launch_stream<BN, 2>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
+  if (mt <= 4) return launch_stream<BN, 4>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
+  if (mt <= 8) return launch_stream<BN, 8>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -722,9 +753,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer,
 // out (M, N) = A (M, K) . B (K, N) in layout L: x is A as stored ((M, K),
 // or (K, M) for TN), w is B as stored ((K, N), or (N, K) for NT)
 template <int BN, int L>
-int launch_wgmma(const void* x, const void* w, void* y, float* ws, int M,
-                 int N, int K, int kslice, int splits, int sps,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* x, const void* w, void* y, float* ws,
+                 const float* acc, int M, int N, int K, int kslice, int splits,
+                 int sps, cudaStream_t stream) {
   CUtensorMap tx, tw;
   const bool ok_x = L == TN ? tensor_map(&tx, x, M, K, 64, KSTEP)
                             : tensor_map(&tx, x, K, M, KSTEP, WG_BM);
@@ -742,18 +773,18 @@ int launch_wgmma(const void* x, const void* w, void* y, float* ws, int M,
   }
   const dim3 grid((M + WG_BM - 1) / WG_BM, (N + BN - 1) / BN, splits);
   split_matmul_wgmma_kernel<BN, L><<<grid, 384, smem, stream>>>(
-      tx, tw, (bf16*)y, splits > 1 ? ws : nullptr, M, N, K, kslice, sps);
+      tx, tw, y, splits > 1 ? ws : nullptr, acc, M, N, K, kslice, sps);
   return (int)cudaGetLastError();
 }
 
 template <int L>
-int launch_wgmma_bn(const void* x, const void* w, void* y, float* ws, int M,
-                    int N, int K, int kslice, int bn, int splits, int sps,
-                    cudaStream_t st) {
-  if (bn == 256) return launch_wgmma<256, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
-  if (bn == 192) return launch_wgmma<192, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
-  if (bn == 128) return launch_wgmma<128, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
-  if (bn == 64) return launch_wgmma<64, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+int launch_wgmma_bn(const void* x, const void* w, void* y, float* ws,
+                    const float* acc, int M, int N, int K, int kslice, int bn,
+                    int splits, int sps, cudaStream_t st) {
+  if (bn == 256) return launch_wgmma<256, L>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
+  if (bn == 192) return launch_wgmma<192, L>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
+  if (bn == 128) return launch_wgmma<128, L>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
+  if (bn == 64) return launch_wgmma<64, L>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -823,40 +854,46 @@ split_matmul_strided_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 // (a): bn in {16, 32, 64, 128}, M <= 64; (b): bn in {64, 128, 192, 256}.  `ws` holds
 // (splits, M, N) fp32 when splits > 1.  kslice <= K; splits * sps slices
-// cover K.  Each returns a cudaError_t code.
+// cover K.  `acc`, when not null, is an fp32 (M, N) tensor and y is then
+// fp32 = acc + x @ w (the accumulating form; y may be acc itself).  Each
+// returns a cudaError_t code.
 extern "C" int split_matmul_stream_bf16(const void* x, const void* w, void* y,
-                                        void* ws, int M, int N, int K,
-                                        int kslice, int bn, int splits,
-                                        int sps, void* stream) {
+                                        void* ws, const void* acc, int M,
+                                        int N, int K, int kslice, int bn,
+                                        int splits, int sps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* wsf = (float*)ws;
+  const float* af = (const float*)acc;
   int rc;
-  if (bn == 128) rc = launch_stream_m<128>(x, w, y, wsf, M, N, K, kslice, splits, sps, st);
-  else if (bn == 64) rc = launch_stream_m<64>(x, w, y, wsf, M, N, K, kslice, splits, sps, st);
-  else if (bn == 32) rc = launch_stream_m<32>(x, w, y, wsf, M, N, K, kslice, splits, sps, st);
-  else if (bn == 16) rc = launch_stream_m<16>(x, w, y, wsf, M, N, K, kslice, splits, sps, st);
+  if (bn == 128) rc = launch_stream_m<128>(x, w, y, wsf, af, M, N, K, kslice, splits, sps, st);
+  else if (bn == 64) rc = launch_stream_m<64>(x, w, y, wsf, af, M, N, K, kslice, splits, sps, st);
+  else if (bn == 32) rc = launch_stream_m<32>(x, w, y, wsf, af, M, N, K, kslice, splits, sps, st);
+  else if (bn == 16) rc = launch_stream_m<16>(x, w, y, wsf, af, M, N, K, kslice, splits, sps, st);
   else return (int)cudaErrorInvalidValue;
   if (rc != 0 || splits <= 1) return rc;
-  return launch_reduce(wsf, y, M, N, splits, st);
+  return launch_reduce(wsf, y, af, M, N, splits, st);
 }
 
 // layout 0 = NN (x (M,K) . w (K,N)), 1 = NT (x (M,K) . w^T, w stored
 // (N,K)), 2 = TN (x^T . w, x stored (K,M), w (K,N)); out (M, N).  NT and
-// TN need kslice % 64 == 0 (the wrapper's plan gives it).
+// TN need kslice % 64 == 0 (the wrapper's plan gives it).  `acc` (NN
+// only) as for the stream design.
 extern "C" int split_matmul_wgmma_bf16(const void* x, const void* w, void* y,
-                                       void* ws, int layout, int M, int N,
-                                       int K, int kslice, int bn, int splits,
-                                       int sps, void* stream) {
+                                       void* ws, const void* acc, int layout,
+                                       int M, int N, int K, int kslice,
+                                       int bn, int splits, int sps,
+                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* wsf = (float*)ws;
-  if (layout != NN && kslice % KSTEP) return (int)cudaErrorInvalidValue;
+  const float* af = (const float*)acc;
+  if (layout != NN && (kslice % KSTEP || af)) return (int)cudaErrorInvalidValue;
   int rc;
-  if (layout == NN) rc = launch_wgmma_bn<NN>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
-  else if (layout == NT) rc = launch_wgmma_bn<NT>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
-  else if (layout == TN) rc = launch_wgmma_bn<TN>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
+  if (layout == NN) rc = launch_wgmma_bn<NN>(x, w, y, wsf, af, M, N, K, kslice, bn, splits, sps, st);
+  else if (layout == NT) rc = launch_wgmma_bn<NT>(x, w, y, wsf, nullptr, M, N, K, kslice, bn, splits, sps, st);
+  else if (layout == TN) rc = launch_wgmma_bn<TN>(x, w, y, wsf, nullptr, M, N, K, kslice, bn, splits, sps, st);
   else return (int)cudaErrorInvalidValue;
   if (rc != 0 || splits <= 1) return rc;
-  return launch_reduce(wsf, y, M, N, splits, st);
+  return launch_reduce(wsf, y, af, M, N, splits, st);
 }
 
 // out (R, C) = A . B with A(r, k) = a[r sar + k sak], B(k, c) = b[k sbk +
@@ -879,26 +916,26 @@ extern "C" int split_matmul_strided(const void* a, const void* b, void* y,
 }
 
 extern "C" int split_matmul_bf16(const void* x, const void* w, void* y,
-                                 int M, int N, int K, int kslice,
-                                 void* stream) {
+                                 const void* acc, int M, int N, int K,
+                                 int kslice, void* stream) {
   using namespace general;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const int ks = (((kslice > 1 ? kslice : 1) + BK - 1) / BK) * BK;
   const int vec_x = (K % 8 == 0) && ((uintptr_t)x % 16 == 0);
   const int vec_w = (N % 8 == 0) && ((uintptr_t)w % 16 == 0);
   split_matmul_bf16_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y,
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, y, (const float*)acc,
       M, N, K, ks, vec_x, vec_w);
   return (int)cudaGetLastError();
 }
 
 extern "C" int split_matmul_f32(const void* x, const void* w, void* y,
-                                int M, int N, int K, int kslice,
-                                void* stream) {
+                                const void* acc, int M, int N, int K,
+                                int kslice, void* stream) {
   using namespace general;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   split_matmul_f32_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (float*)y, M, N, K,
+      (const float*)x, (const float*)w, (float*)y, (const float*)acc, M, N, K,
       kslice > 1 ? kslice : 1);
   return (int)cudaGetLastError();
 }

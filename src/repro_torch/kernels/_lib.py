@@ -98,11 +98,11 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        handle.split_matmul_bf16.argtypes = [p, p, p, i, i, i, i, p]
-        handle.split_matmul_f32.argtypes = [p, p, p, i, i, i, i, p]
+        handle.split_matmul_bf16.argtypes = [p] * 4 + [i] * 4 + [p]
+        handle.split_matmul_f32.argtypes = [p] * 4 + [i] * 4 + [p]
         ll = ctypes.c_longlong
-        handle.split_matmul_stream_bf16.argtypes = [p] * 4 + [i] * 7 + [p]
-        handle.split_matmul_wgmma_bf16.argtypes = [p] * 4 + [i] * 8 + [p]
+        handle.split_matmul_stream_bf16.argtypes = [p] * 5 + [i] * 7 + [p]
+        handle.split_matmul_wgmma_bf16.argtypes = [p] * 5 + [i] * 8 + [p]
         handle.split_matmul_strided.argtypes = [p] * 3 + [i] * 3 + [ll] * 4 \
             + [i, p]
         handle.flash_attention_fwd.argtypes = [p] * 5 + [i] * 9 + [

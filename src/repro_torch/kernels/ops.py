@@ -5,15 +5,25 @@ launches the hand-written kernel or raises — there is no fallback.
 This replaces the JAX package's `use_pallas()` switch: which version
 runs follows from where the data lives, not from a flag.
 
-`matmul` and `attention` are the differentiable forms the model path
-calls, in training and in serving alike: `torch.autograd.Function`s
-whose forward is the entry point above and whose backward is again the
-kernels (`split_matmul_dgrad` / `split_matmul_wgrad`,
-`flash_attention_bwd`).
+`matmul`, `matmul_acc` and `attention` are the differentiable forms
+the model path calls, in training and in serving alike:
+`torch.autograd.Function`s whose forward is the entry point above and
+whose backward is again the kernels (`split_matmul_dgrad` /
+`split_matmul_wgrad`, `flash_attention_bwd`).
+
+A product that `sharding.specs.seg_matmul` names (its weight path, the
+JAX package's `checkpoint_name` tag) runs, when gradients are being
+taken, as the operator `torch.ops.repro_torch.tagged_matmul`, which
+carries the tag as an argument.  The kernels launch through `ctypes`,
+so the dispatcher sees nothing of them; a selective-checkpoint policy
+(`models.transformer.save_only_these_names`) sees this operator, reads
+its tag, and saves its output or has it recomputed.  `product_counts`
+counts the tagged products actually computed, by tag: a kept product
+is not computed again in the backward.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -34,14 +44,16 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
 
 
 def split_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = 64,
-                 bn: int = 64, bk: int = 512,
-                 transpose_w: bool = False) -> torch.Tensor:
+                 bn: int = 64, bk: int = 512, transpose_w: bool = False,
+                 acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x:(M,K) @ w:(K,N) -> (M,N) in x.dtype, fp32 accumulation; with
-    `transpose_w`, w is (N,K) and x @ w^T is taken."""
-    if _on_cpu(x, w):
-        return ref.split_matmul_ref(x, w.t() if transpose_w else w, bk=bk)
+    `transpose_w`, w is (N,K) and x @ w^T is taken.  With `acc` (fp32
+    (M, N)) the accumulating form: the fp32 acc + x @ w."""
+    if _on_cpu(x, w, *(() if acc is None else (acc,))):
+        return ref.split_matmul_ref(x, w.t() if transpose_w else w, bk=bk,
+                                    acc=acc)
     return _split.split_matmul(x, w, bm=bm, bn=bn, bk=bk,
-                               transpose_w=transpose_w)
+                               transpose_w=transpose_w, acc=acc)
 
 
 def split_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
@@ -106,29 +118,107 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 # caller that rebinds them (chip_smoke.py's plain-version comparison)
 # routes the whole forward and backward.
 
+product_counts: Dict[str, int] = {}   # tagged products computed, by tag
+
+
+def _products(x: torch.Tensor, ws: List[torch.Tensor], transpose_w: bool,
+              tag: str) -> torch.Tensor:
+    """x @ w for one weight; for several, the sum over the weights of
+    x's matching column slice times each (the input-dim split of
+    `seg_matmul`, summed in the weights' order in x's dtype)."""
+    if tag:
+        product_counts[tag] = product_counts.get(tag, 0) + 1
+    if len(ws) == 1:
+        return split_matmul(x, ws[0], transpose_w=transpose_w)
+    y, off = None, 0
+    for w in ws:
+        part = split_matmul(x[:, off:off + w.shape[0]].contiguous(), w)
+        y = part if y is None else y + part
+        off += w.shape[0]
+    return y
+
+
+@torch.library.custom_op("repro_torch::tagged_matmul", mutates_args=())
+def tagged_matmul(x: torch.Tensor, ws: List[torch.Tensor],
+                  transpose_w: bool, tag: str) -> torch.Tensor:
+    """`_products` as an operator the dispatcher sees, with its tag (see
+    the module note); it has no gradient of its own: `_Matmul` calls it
+    inside its forward."""
+    return _products(x, ws, transpose_w, tag)
+
+
 class _Matmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, transpose_w):
-        ctx.save_for_backward(x, w)
+    def forward(ctx, x, transpose_w, tag, via_op, *ws):
+        ctx.save_for_backward(x, *ws)
         ctx.transpose_w = transpose_w
-        return split_matmul(x, w, transpose_w=transpose_w)
+        if via_op:
+            return torch.ops.repro_torch.tagged_matmul(x, list(ws),
+                                                       transpose_w, tag)
+        return _products(x, list(ws), transpose_w, tag)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *ws = ctx.saved_tensors
+        t = ctx.transpose_w
+        dx = dws = None
+        if len(ws) == 1:
+            if ctx.needs_input_grad[0]:
+                dx = split_matmul_dgrad(dy, ws[0], transpose_w=t)
+            if ctx.needs_input_grad[4]:
+                dws = [split_matmul_wgrad(x, dy, transpose_w=t)]
+        else:   # each weight's slice of x; dx is their concatenation
+            offs = [0]
+            for w in ws:
+                offs.append(offs[-1] + w.shape[0])
+            if ctx.needs_input_grad[0]:
+                dx = torch.cat([split_matmul_dgrad(dy, w) for w in ws], -1)
+            if any(ctx.needs_input_grad[4:]):
+                dws = [split_matmul_wgrad(x[:, a:b].contiguous(), dy)
+                       for a, b in zip(offs, offs[1:])]
+        return (dx, None, None, None,
+                *(dws if dws is not None else [None] * len(ws)))
+
+
+def matmul(x: torch.Tensor, w, transpose_w: bool = False,
+           tag: str = "") -> torch.Tensor:
+    """x:(M,K) @ w (or w^T) through `split_matmul`, differentiable: the
+    backward is `split_matmul_dgrad` and `split_matmul_wgrad`.  `w` may
+    be a list of weights whose rows split K: the sum of x's slices times
+    each.  `tag` names the output for a selective checkpoint; it goes
+    through `tagged_matmul` only when gradients are being taken."""
+    ws = list(w) if isinstance(w, (list, tuple)) else [w]
+    via_op = bool(tag) and torch.is_grad_enabled()
+    return _Matmul.apply(x, transpose_w, tag, via_op, *ws)
+
+
+class _MatmulAcc(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, acc):
+        ctx.save_for_backward(x, w)
+        return split_matmul(x, w, acc=acc)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        t = ctx.transpose_w
-        dx = split_matmul_dgrad(dy, w, transpose_w=t) \
-            if ctx.needs_input_grad[0] else None
-        dw = split_matmul_wgrad(x, dy, transpose_w=t) \
-            if ctx.needs_input_grad[1] else None
-        return dx, dw, None
+        # The cotangent at the fp32 accumulator is the fp32 image of the
+        # cotangent of the x.dtype result the chunked sum is cast to at
+        # its end (`core.operator_split`), so casting it back to x.dtype
+        # for the kernels loses nothing.
+        dyc = dy.to(x.dtype)
+        dx = split_matmul_dgrad(dyc, w) if ctx.needs_input_grad[0] \
+            else None
+        dw = split_matmul_wgrad(x, dyc) if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw, dy if ctx.needs_input_grad[2] else None
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor,
-           transpose_w: bool = False) -> torch.Tensor:
-    """x:(M,K) @ w (or w^T) through `split_matmul`, differentiable: the
-    backward is `split_matmul_dgrad` and `split_matmul_wgrad`."""
-    return _Matmul.apply(x, w, transpose_w)
+def matmul_acc(x: torch.Tensor, w: torch.Tensor,
+               acc: torch.Tensor) -> torch.Tensor:
+    """The fp32 acc + x @ w through `split_matmul`'s accumulating form,
+    differentiable: acc's gradient passes straight through, x's and w's
+    are `split_matmul_dgrad` and `split_matmul_wgrad` of its cast."""
+    return _MatmulAcc.apply(x, w, acc)
 
 
 class _Attention(torch.autograd.Function):
@@ -161,6 +251,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last `reset_launch_counts`."""
     return {"split_matmul": _split.launches,
+            "split_matmul_acc": _split.acc_launches,
             "split_matmul_dgrad": _split.dgrad_launches,
             "split_matmul_wgrad": _split.wgrad_launches,
             "flash_attention": _flash.launches,
@@ -175,7 +266,10 @@ def split_matmul_layout_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero the kernel launch counts and `product_counts`."""
     _split.launches = _split.dgrad_launches = _split.wgrad_launches = 0
+    _split.acc_launches = 0
+    product_counts.clear()
     _split.layout_launches = dict.fromkeys(_split.LAYOUTS, 0)
     _flash.launches = _flash.bwd_launches = 0
     _ssd.launches = 0

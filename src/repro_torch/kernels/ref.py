@@ -14,19 +14,22 @@ NEG_INF = -1e30
 
 
 def split_matmul_ref(x: torch.Tensor, w: torch.Tensor,
-                     bk: Optional[int] = None) -> torch.Tensor:
+                     bk: Optional[int] = None,
+                     acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x:(M,K) @ w:(K,N) in fp32, cast to x.dtype.  With `bk`, K runs in
     slices of bk summed into one fp32 accumulator: the operator-splitting
-    schedule of the kernel (granularity K/bk)."""
+    schedule of the kernel (granularity K/bk).  With `acc` (fp32 (M, N))
+    the accumulating form: acc + that fp32 sum, not cast."""
     K = x.shape[-1]
     xf, wf = x.float(), w.float()
     if not bk or bk >= K:
-        return (xf @ wf).to(x.dtype)
-    acc = None
-    for s in range(0, K, bk):
-        part = xf[:, s:s + bk] @ wf[s:s + bk]
-        acc = part if acc is None else acc + part
-    return acc.to(x.dtype)
+        out = xf @ wf
+    else:
+        out = None
+        for s in range(0, K, bk):
+            part = xf[:, s:s + bk] @ wf[s:s + bk]
+            out = part if out is None else out + part
+    return out.to(x.dtype) if acc is None else acc + out
 
 
 def split_matmul_dgrad_ref(dy: torch.Tensor, w: torch.Tensor, *,

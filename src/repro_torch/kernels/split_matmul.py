@@ -29,6 +29,12 @@ The backward takes the same kernel in two more operand layouts
 - `split_matmul(..., transpose_w=True)` is the tied head's forward in
   "nt", with no transposed copy of the embedding.
 
+The accumulating form `split_matmul(x, w, acc=y)` returns the fp32
+`y + x @ w` (counted in `acc_launches`): the forward layout's designs
+with an epilogue that adds the product's fp32 sum into the fp32 tile of
+`acc` instead of casting it, so a chunked product (`core/operator_split`)
+sums its chunks in fp32 as the TPU kernel's K-slice accumulator does.
+
 "nt" and "tn" take the wgmma design at every row count, with K cut at
 multiples of 64 (`BWD_KSLICE`, so only the tensor's end is ragged) and
 split-K where the tiles leave SMs idle; what it cannot take (float32,
@@ -40,7 +46,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -65,6 +71,7 @@ BWD_KSLICE = 512       # K unit of the "nt"/"tn" plans, a multiple of 64
 launches = 0           # forward launches since the last reset
 dgrad_launches = 0     # dx launches
 wgrad_launches = 0     # dw launches
+acc_launches = 0       # accumulating forward launches (fp32 acc + x @ w)
 layout_launches = dict.fromkeys(LAYOUTS, 0)   # every role's, by layout
 
 
@@ -213,25 +220,28 @@ def _check(a: torch.Tensor, b: torch.Tensor, layout: str, what: str):
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, layout: str, bk: int,
-            role: str) -> torch.Tensor:
+            role: str, acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out(M, N) = A . B (see `dims`) in a's dtype through the plan's
-    design; a launch adds one to the count of `role` ("fwd", "dgrad" or
-    "wgrad") and of its layout."""
-    global launches, dgrad_launches, wgrad_launches
+    design, or with `acc` (layout "nn") the fp32 acc + A . B; a launch
+    adds one to the count of `role` ("fwd", "dgrad", "wgrad" or "acc")
+    and of its layout."""
+    global launches, dgrad_launches, wgrad_launches, acc_launches
     M, N, K = dims(a, b, layout)
-    y = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    y = torch.empty((M, N), dtype=a.dtype if acc is None else torch.float32,
+                    device=a.device)
     if M == 0 or N == 0:
         return y
     if K == 0:
-        return y.zero_()
+        return y.zero_() if acc is None else y.copy_(acc)
+    acc_ptr = acc.data_ptr() if acc is not None else None
     lib = _lib.lib()
     plan = plan_for(a, b, bk, layout)
     stream = _lib.stream_of(a)
     if plan.variant == "general" and layout == "nn":
         fn = (lib.split_matmul_bf16 if a.dtype == torch.bfloat16
               else lib.split_matmul_f32)
-        rc = fn(a.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, bk,
-                stream)
+        rc = fn(a.data_ptr(), b.data_ptr(), y.data_ptr(), acc_ptr, M, N, K,
+                bk, stream)
     elif plan.variant == "general":
         # A(r, k) = a[r sar + k sak], B(k, c) = b[k sbk + c sbc]
         sar, sak = (K, 1) if layout == "nt" else (1, M)
@@ -243,7 +253,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, layout: str, bk: int,
         ws = (torch.empty(plan.workspace, dtype=torch.float32,
                           device=a.device) if plan.workspace else None)
         args = (a.data_ptr(), b.data_ptr(), y.data_ptr(),
-                ws.data_ptr() if ws is not None else None)
+                ws.data_ptr() if ws is not None else None, acc_ptr)
         if plan.variant == "stream":
             rc = lib.split_matmul_stream_bf16(
                 *args, M, N, K, plan.kslice, plan.bn, plan.splits,
@@ -258,27 +268,43 @@ def _launch(a: torch.Tensor, b: torch.Tensor, layout: str, bk: int,
         dgrad_launches += 1
     elif role == "wgrad":
         wgrad_launches += 1
+    elif role == "acc":
+        acc_launches += 1
     else:
         launches += 1
     return y
 
 
 def split_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = TILE,
-                 bn: int = TILE, bk: int = 512,
-                 transpose_w: bool = False) -> torch.Tensor:
+                 bn: int = TILE, bk: int = 512, transpose_w: bool = False,
+                 acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x:(M,K) @ w:(K,N) -> (M,N) in x.dtype with an fp32 accumulator;
     K runs in slices of `bk` (operator-splitting granularity K/bk).
     Ragged M, N, K are fine.  The tile is the plan's (`plan_launch`), so
     `bm`/`bn` must be 64; they are kept for the TPU kernel's
     signature.  `transpose_w`: w is stored (N, K) and x @ w^T is taken
-    ("nt", the tied head), with no copy of w."""
+    ("nt", the tied head), with no copy of w.  `acc`: an fp32 (M, N)
+    tensor; the result is then the fp32 acc + x @ w (a new tensor)."""
     layout = "nt" if transpose_w else "nn"
     _check(x, w, layout, "split_matmul")
     if (bm, bn) != (TILE, TILE) or bk < 1:
         raise ValueError(f"blocks (bm={bm}, bn={bn}, bk={bk}): the kernel "
                          f"chooses its own tiles, bm and bn must be {TILE} "
                          f"and bk >= 1")
-    return _launch(x, w, layout, bk, "fwd")
+    if acc is None:
+        return _launch(x, w, layout, bk, "fwd")
+    M, N, _ = dims(x, w, layout)
+    if transpose_w:
+        raise ValueError("split_matmul: the accumulating form takes the "
+                         "forward layout only (transpose_w=False)")
+    if acc.device != x.device or acc.dtype != torch.float32 or \
+            tuple(acc.shape) != (M, N) or not acc.is_contiguous() or \
+            acc.data_ptr() % 16:
+        raise ValueError(f"split_matmul: acc must be a contiguous, 16-byte "
+                         f"aligned float32 ({M}, {N}) tensor on {x.device}, "
+                         f"got {acc.dtype} {tuple(acc.shape)} on "
+                         f"{acc.device}")
+    return _launch(x, w, layout, bk, "acc", acc)
 
 
 def split_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor, *,

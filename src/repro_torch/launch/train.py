@@ -4,6 +4,9 @@
         --cpu --steps 3
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --batch 8 \\
         --device h100-sxm --memory-gib 64 --steps 5
+    python -m repro_torch.launch.train --arch qwen1.5-0.5b --batch 8 \\
+        --device h100-sxm --memory-gib 64 --steps 100 \\
+        --ckpt-dir ckpt --ckpt-every 10 --keep-last 2 [--resume]
 
 Runs the OSDP pipeline (describe -> search -> plan) for a one-device
 mesh, builds the model with the plan's segments and remat policy, and
@@ -13,9 +16,12 @@ without a card and without `--cpu` it raises, and never falls back.
 With `--reduced` and no `--seq`/`--batch` the shape is cut to seq 128
 and batch 4 (smoke scale; the JAX launcher keeps the shape's own).
 
-The JAX launcher's `--overlap*` flags (OverlapConfig, ROADMAP section 1
-item 6) and `--ckpt-dir`/`--ckpt-every`/`--keep-last`/`--resume`
-(checkpointing, ROADMAP section 1 item 2) are not ported yet.
+`--ckpt-dir` writes crash-safe checkpoints in the JAX package's format
+(every `--ckpt-every` steps and at the end, keeping the newest
+`--keep-last`); `--resume` restores the latest valid one and treats
+`--steps` as the total step target, so a killed run restarts where its
+last checkpoint left it.  The JAX launcher's `--overlap*` flags
+(OverlapConfig, ROADMAP section 1 item 6) are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,11 +54,22 @@ def main(argv=None) -> int:
                          "(tpu-v5e, tpu-v4, a100-80g, h100-sxm)")
     ap.add_argument("--force-mode", default=None, choices=["DP", "ZDP"])
     ap.add_argument("--no-osdp", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--keep-last", type=int, default=0,
+                    help="checkpoint retention: keep the newest N "
+                         "completed steps (0 = keep everything)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest valid checkpoint under "
+                         "--ckpt-dir and treat --steps as the TOTAL "
+                         "step target (completed steps are skipped)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="train on the CPU (the kernels' plain versions) "
                          "instead of the card")
     args = ap.parse_args(argv)
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
     dev = resolve_device("cpu" if args.cpu else None)
 
     model_cfg = get_arch(args.arch)
@@ -82,7 +99,12 @@ def main(argv=None) -> int:
           f"device {dev}")
     res = train(built, args.steps, seed=args.seed,
                 opt_cfg=AdamWConfig(lr=args.lr), warmup=args.warmup,
-                device=dev)
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                keep_last=args.keep_last, resume=args.resume, device=dev)
+    if not res.steps:
+        print(f"nothing to train: checkpoint already at step "
+              f"{res.start_step} >= target {args.steps}")
+        return 0
     print(f"done: {res.steps} steps, loss {res.losses[0]:.4f} -> "
           f"{res.losses[-1]:.4f}, {res.tokens_per_s:.0f} tok/s")
     return 0

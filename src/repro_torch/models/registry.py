@@ -18,7 +18,8 @@ from repro_torch.core.cost_model import Decision
 from repro_torch.models.common import attn_geometry
 from repro_torch.models.transformer import Model, build_specs
 from repro_torch.sharding.specs import (ParamSet, WeightSpec,
-                                        build_param_set, plan_layouts)
+                                        build_param_set, plan_layouts,
+                                        saved_activation_names)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,26 +67,25 @@ def build_model(run: RunConfig, plan=None) -> Built:
 
 
 def _remat_policy(run: RunConfig, decisions: Dict[str, Decision],
-                  pset: ParamSet) -> bool:
-    """The plan's remat axis as `Model.remat`.  Each plan slice of every
-    weight's operator resolves its remat bit (None, and an operator
-    outside the plan, inherit the run's global flag): all True gives
-    True, all False gives False.  A mix is a selective plan (some
-    activations kept, some recomputed), whose save-only-these-names
-    policy is a later slice (ROADMAP.md section 1, "Selective remat"):
-    it is refused."""
-    default = bool(run.osdp.env_checkpointing)
-    bits = set()
-    for lay in pset.layouts.values():
-        d = decisions.get(lay.spec.op)
-        slices = d.remat if d is not None and d.remat is not None else (None,)
-        bits |= {default if r is None else bool(r) for r in slices}
-    if len(bits) > 1:
-        raise NotImplementedError(
-            "selective remat (the plan keeps some activations and "
-            "recomputes the rest) is not ported yet: ROADMAP.md section 1, "
-            "\"Selective remat\"")
-    return bits.pop() if bits else default
+                  pset: ParamSet):
+    """Compile the plan's remat axis into `Model.remat`, as the JAX
+    package's `_remat_policy`.
+
+    Legacy plans (no explicit per-slice bits) keep the global flag.
+    Selective plans compile to the tuple of product tags whose
+    activations the checkpoint policy must SAVE (everything else is
+    recomputed); all-keep plans drop the checkpoint entirely and
+    all-remat plans take the plain full checkpoint."""
+    default = run.osdp.env_checkpointing
+    if not decisions or not any(d.remat is not None
+                                for d in decisions.values()):
+        return default
+    saved, any_remat = saved_activation_names(pset.layouts, default)
+    if not any_remat:
+        return False
+    if not saved:
+        return True
+    return saved
 
 
 def train_inputs(cfg: ModelConfig, B: int, S: int,

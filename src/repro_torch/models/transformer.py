@@ -7,9 +7,11 @@ Parameters are stacked over layers, as in the JAX package; its
 `lax.scan` over layers becomes a Python loop over `w[l]` (a view, no
 copy; in training over `unbind` views, whose backward stacks the
 layers' gradients once).  The OSDP plan decides per-operator
-segmentation through `sharding.specs` and remat through `Model.remat`
-(a `torch.utils.checkpoint` per layer, or none; a selective plan is
-refused in `models.registry`).  Training runs the dense family
+segmentation through `sharding.specs`, the FFN's uniform operator split
+(`chunked_ffn` in training, as in the JAX package) and remat through
+`Model.remat`: a `torch.utils.checkpoint` per layer, none, or a
+selective checkpoint that keeps only the tagged products the plan
+names (`save_only_these_names`).  Training runs the dense family
 (`forward`, `loss_fn` with the chunked cross-entropy); SSM training
 waits for an `ssd_scan` backward.  MoE, hybrid, VLM and audio come
 with later slices.
@@ -18,10 +20,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import DENSE, SSM, ModelConfig
 from repro_torch.core.cost_model import Decision
@@ -41,6 +44,24 @@ LayerParams = Dict[str, torch.Tensor]
 # (B, S, V) logits never materialize whole
 CE_CHUNK = 512
 CE_MIN_ELEMS = 2 ** 27
+
+
+def save_only_these_names(*names: str):
+    """A selective-checkpoint context factory (`checkpoint(...,
+    context_fn=...)`) that keeps exactly the products tagged with one of
+    `names` and recomputes everything else: the JAX package's
+    `jax.checkpoint_policies.save_only_these_names`.  The policy sees
+    each tagged product as `ops.tagged_matmul`, whose fourth argument is
+    its tag (see `kernels.ops`); a name that tags nothing in the body
+    keeps nothing."""
+    keep = frozenset(names)
+    tagged = torch.ops.repro_torch.tagged_matmul.default
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is tagged and args[3] in keep:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return partial(create_selective_checkpoint_contexts, policy)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -148,8 +169,11 @@ class Model:
     pset: ParamSet
     decisions: Dict[str, Decision]
     # True = a checkpoint per layer (its activations recomputed in the
-    # backward), False = keep everything; see models.registry
-    remat: bool = True
+    # backward), False = keep everything, or a tuple of product tags to
+    # SAVE (selective per-slice remat plans: everything else in the
+    # layer is recomputed); see models.registry._remat_policy and the
+    # tags of sharding.specs.seg_matmul
+    remat: Union[bool, Tuple[str, ...]] = True
     swa_window: int = 0          # override window for long-context decode
 
     # -- helpers ------------------------------------------------------------
@@ -168,6 +192,14 @@ class Model:
 
     def _window(self) -> int:
         return self.swa_window or self.cfg.sliding_window
+
+    def _split_g(self, op: str) -> int:
+        """The plan's uniform operator-split granularity of `op` (1 when
+        the op is unplanned or its slices mix modes)."""
+        dec = self.decisions.get(op)
+        if dec is None:
+            return 1
+        return dec.split if dec.uniform() is not None else 1
 
     # -- embedding / head ---------------------------------------------------
     def embed(self, params: Dict[str, torch.Tensor],
@@ -194,17 +226,23 @@ class Model:
             logits[..., cfg.vocab_size:] = attn_mod.NEG_INF
         return logits
 
-    def _ffn(self, lp, x):
+    def _ffn(self, lp, x, granularity: int = 1):
         if not self.cfg.d_ff:
             return x
         h = self._norm(lp, x, "layers/ffn/norm")
-        return x + ffn_mod.ffn_forward(self.cfg, self.pset, lp, h)
+        return x + ffn_mod.ffn_forward(self.cfg, self.pset, lp, h,
+                                       granularity=granularity)
 
     # -- training -------------------------------------------------------------
     def _checkpoint(self, body):
-        """A layer body under the plan's remat: a checkpoint or none."""
-        if self.remat:
+        """A layer body under the plan's remat: a full checkpoint, none,
+        or a selective one that saves only the tagged products named in
+        `remat`."""
+        if self.remat is True:
             return partial(checkpoint, body, use_reentrant=False)
+        if self.remat:
+            return partial(checkpoint, body, use_reentrant=False,
+                           context_fn=save_only_these_names(*self.remat))
         return body
 
     def _block(self, x: torch.Tensor, lp: LayerParams,
@@ -213,15 +251,16 @@ class Model:
         h = self._norm(lp, x, "layers/attn/norm")
         x = x + attn_mod.attn_forward(cfg, self.geom, self.pset, lp, h,
                                       positions, window=window)
-        return self._ffn(lp, x)
+        return self._ffn(lp, x, self._split_g("layers.ffn_w13"))
 
     def forward(self, params: Dict[str, torch.Tensor],
                 batch: Dict[str, torch.Tensor], *,
                 window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward -> (hidden states (B,S,d), aux loss).  A
-        plan's uniform operator split (granularity > 1) runs unchunked:
-        the same products up to summation order (chunked FFN splitting,
-        a memory device, is not ported yet)."""
+        plan's uniform operator split of the FFN (granularity g > 1) runs
+        `chunked_ffn` with g chunks, as the JAX package's forward does;
+        a split of the other ops changes no product (their weights are
+        not chunked there either)."""
         cfg = self.cfg
         if cfg.family != DENSE:
             raise NotImplementedError(

@@ -7,11 +7,14 @@ OSDP plan into flat parameters, each weight split into per-mode segments
 along its ZDP axis when the plan mixes modes, plus the per-weight
 `SegLayout` the forward pass reads.
 
-This slice runs on one device, so segments carry their mode but no
-placement: device sharding (the JAX module's NamedSharding helpers) and
-the `OverlapConfig` prefetch come with the sharded-execution slice, and
-the per-segment remat bits and `checkpoint_name` tags with selective
-remat.
+Each segment carries its remat bit, resolved from the plan's per-slice
+bits as the JAX package does, and `seg_matmul` names its outputs with
+the JAX package's `checkpoint_name` tags (`kernels.ops.matmul`'s `tag`),
+so `saved_activation_names` compiles a selective plan into the names a
+checkpoint policy keeps.  This slice runs on one device, so segments
+carry their mode but no placement: device sharding (the JAX module's
+NamedSharding helpers) and the `OverlapConfig` prefetch come with the
+sharded-execution slice.
 """
 from __future__ import annotations
 
@@ -49,6 +52,13 @@ class Segment:
     start: int
     size: int
     key: str          # leaf name suffix ("" if single segment)
+    # per-segment remat resolved from the plan's Decision.remat bits:
+    # True = recompute this segment's activations, False = keep them,
+    # None = inherit the run's global checkpointing default.  Segments
+    # merge by sharding mode (storage), so a segment spanning slices
+    # with mixed remat bits resolves to True (recompute, the
+    # memory-safe direction).
+    remat: Optional[bool] = None
 
 
 @dataclass
@@ -92,23 +102,44 @@ def _merge_modes(modes: Sequence[str], dim: int
     return out or [(modes[0], 0, dim, tuple(range(g)))]
 
 
+def _segment_remat(decision: Optional[Decision],
+                   idxs: Sequence[int]) -> Optional[bool]:
+    """Resolve one merged segment's remat bit from the plan slices that
+    contribute bytes to it: uniform -> that bit, mixed -> True
+    (recompute is the memory-safe approximation), no explicit bits ->
+    None (inherit)."""
+    if decision is None or decision.remat is None:
+        return None
+    bits = set(decision.remat[j] for j in idxs)
+    if bits == {True}:
+        return True
+    if bits == {False}:
+        return False
+    if bits == {None}:
+        return None
+    return True
+
+
 def layout_for(spec: WeightSpec,
                decision: Optional[Decision]) -> SegLayout:
-    """The JAX package's `layout_for`, without the per-segment remat
-    bits (`models.registry` reads a plan's remat axis from its
-    decisions, and runs only a plan that remats all or nothing)."""
+    """The JAX package's `layout_for`: the weight's segments, each with
+    its mode and remat bit."""
     modes = decision.modes if decision is not None else (DP,)
     if spec.zdp_axis is None or len(modes) == 1:
         mode = modes[0] if spec.zdp_axis is not None else DP
         return SegLayout(spec, [Segment(
             mode, 0, spec.shape[spec.zdp_axis]
-            if spec.zdp_axis is not None else 0, "")])
+            if spec.zdp_axis is not None else 0, "",
+            _segment_remat(decision, range(len(modes))))])
     dim = spec.shape[spec.zdp_axis]
     merged = _merge_modes(list(modes), dim)
     if len(merged) == 1:
-        return SegLayout(spec, [Segment(merged[0][0], 0, dim, "")])
-    return SegLayout(spec, [Segment(m, s, z, f"@{i}")
-                            for i, (m, s, z, _) in enumerate(merged)])
+        m, _, _, idxs = merged[0]
+        return SegLayout(spec, [Segment(m, 0, dim, "",
+                                        _segment_remat(decision, idxs))])
+    return SegLayout(spec, [Segment(m, s, z, f"@{i}",
+                                    _segment_remat(decision, idxs))
+                            for i, (m, s, z, idxs) in enumerate(merged)])
 
 
 @dataclass
@@ -178,6 +209,37 @@ def build_param_set(specs: Sequence[WeightSpec],
     return params, pset
 
 
+# --- selective-remat checkpoint policy ---------------------------------------
+
+def saved_activation_names(layouts: Dict[str, SegLayout],
+                           default_remat: bool
+                           ) -> Tuple[Tuple[str, ...], bool]:
+    """(names whose activations the checkpoint policy should save,
+    whether anything remats at all) for a materialized plan.
+
+    `seg_matmul` tags each segment's output: per-leaf names for
+    output-dim (concat) segments, the bare weight path for the combined
+    output (single-segment and input-dim-sum cases — where per-slice
+    saving isn't representable, the whole output is saved only if every
+    slice keeps its activations).  Unresolved (inherit) segments follow
+    `default_remat`."""
+    saved: List[str] = []
+    any_remat = False
+    for path, lay in layouts.items():
+        kept = []
+        for seg in lay.segments:
+            r = bool(default_remat) if seg.remat is None else seg.remat
+            if r:
+                any_remat = True
+                kept.append(False)
+            else:
+                saved.append(path + seg.key)
+                kept.append(True)
+        if len(lay.segments) > 1 and all(kept):
+            saved.append(path)    # sum-variant tag on the whole output
+    return tuple(sorted(set(saved))), any_remat
+
+
 # --- helpers used by model forward passes -----------------------------------
 
 def gather_weight(params: Dict[str, torch.Tensor], pset: ParamSet,
@@ -204,36 +266,40 @@ def seg_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor],
     paper's Figure 4 case — segments are processed sequentially and
     summed: y = sum_j x[..., slice_j] @ W_j.  If it is the *output* dim,
     segment outputs are computed sequentially and concatenated.  Every
-    contraction is the `split_matmul` kernel in its differentiable form
-    (the sum and concat carry the gradient to each segment)."""
+    contraction is the `split_matmul` kernel in its differentiable form.
+    Outputs carry the JAX package's checkpoint tags: the weight path on
+    a single segment's output and on the sum (one operator over all
+    segments, so only the whole output has a name), each leaf's name on
+    its part of a concatenation."""
     segs = pset.segments(path)
     spec = pset.layouts[path].spec
     if in_axis_in_weight != 0:
         raise NotImplementedError("contractions over a weight's output "
                                   "axis come with the MoE slice")
     if len(segs) == 1:
-        return _contract(x, params[segs[0][0]])
+        return _contract(x, params[segs[0][0]], path)
     zdp_local = spec.zdp_axis - (1 if spec.stacked else 0)
     if zdp_local == in_axis_in_weight:
-        # sum variant (input-dim split, Figure 4)
-        y = None
-        off = 0
-        for leaf, seg in segs:
-            part = _contract(x[..., off:off + seg.size], params[leaf])
-            y = part if y is None else y + part
-            off += seg.size
-        return y
-    # concat variant (output-dim split)
-    return torch.cat([_contract(x, params[leaf]) for leaf, _ in segs],
+        # sum variant (input-dim split, Figure 4): x's slices times the
+        # segments, summed in segment order
+        return _contract(x, [params[leaf] for leaf, _ in segs], path)
+    # concat variant (output-dim split): per-segment names, so remat
+    # stays a per-slice choice
+    return torch.cat([_contract(x, params[leaf], leaf) for leaf, _ in segs],
                      dim=-1)
 
 
-def _contract(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x[..., K] @ w:(K, N), through the `split_matmul` kernel."""
-    if w.ndim != 2:
+def _contract(x: torch.Tensor, w, tag: str = "") -> torch.Tensor:
+    """x[..., K] @ w:(K, N), through the `split_matmul` kernel; `w` may
+    be a list of (K_j, N) row blocks of the weight (sum K_j = K), whose
+    products with x's matching slices are summed.  `tag` names the
+    output for a selective checkpoint."""
+    ws = w if isinstance(w, list) else [w]
+    if any(t.ndim != 2 for t in ws):
         raise NotImplementedError(
-            f"contraction with a {w.ndim}-D weight (expert weights come "
-            f"with the MoE slice)")
+            f"contraction with a {ws[0].ndim}-D weight (expert weights "
+            f"come with the MoE slice)")
     K = x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
-    return ops.matmul(x2, w).reshape(*x.shape[:-1], w.shape[1])
+    return ops.matmul(x2, w, tag=tag).reshape(*x.shape[:-1],
+                                               ws[0].shape[1])

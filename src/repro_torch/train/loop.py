@@ -8,10 +8,14 @@ attention of the forward and backward goes through the port's kernels
 (`kernels.ops`): on a card the CUDA kernels, on the CPU their plain
 versions.
 
-Not here yet: checkpointing (`ckpt_dir` raises; ROADMAP section 1 item
-2) and the gradient bucketing of `OverlapConfig` (`_bucket_grads`, an
-XLA scheduling device that is identity on values; ROADMAP section 1
-item 6).
+`restore_or_init` and `train`'s checkpoint arguments are the JAX
+package's: crash-safe checkpoints in its on-disk format
+(`checkpoint.io`), resume from the latest valid step, retention, and
+the fault schedule's device losses and checkpoint-write crashes.
+
+Not here yet: the gradient bucketing of `OverlapConfig`
+(`_bucket_grads`, an XLA scheduling device that is identity on values;
+ROADMAP section 1 item 6).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.data.synthetic import Dataset
 from repro_torch.models.registry import Built, resolve_device
 from repro_torch.optim import (AdamWConfig, AdamWState, apply_update,
@@ -92,25 +97,22 @@ class TrainResult:
     final_metrics: Dict[str, float] = field(default_factory=dict)
     step_ms: list = field(default_factory=list)   # host clock, synced
     grad_norms: list = field(default_factory=list)
+    start_step: int = 0
 
 
-def train(built: Built, n_steps: int, *, seed: int = 0,
-          opt_cfg: Optional[AdamWConfig] = None,
-          ckpt_dir: Optional[str] = None, log_every: int = 10,
-          warmup: int = 100,
-          total_steps: int = 10_000, device=None,
-          params: Optional[Dict[str, torch.Tensor]] = None
-          ) -> TrainResult:
-    """Single-device training loop on the synthetic pipeline, as the
-    JAX package's `train` without checkpoints.  `device` defaults to the
-    card (raising without one); `params` starts from given weights (the
-    parity tests carry the JAX package's across) instead of
-    `built.init(seed)`.  Each step's host time is taken after the loss
-    is read back, so the device has finished it."""
-    if ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP section 1 item 2: "
-            "checkpoint/io.py)")
+def restore_or_init(built: Built, ckpt_dir: Optional[str], *,
+                    seed: int = 0, opt_cfg: Optional[AdamWConfig] = None,
+                    warmup: int = 100, total_steps: int = 10_000,
+                    device=None,
+                    params: Optional[Dict[str, torch.Tensor]] = None,
+                    print_fn=print):
+    """(step_fn, params, opt_state, start_step): resume from the latest
+    *valid* checkpoint under `ckpt_dir` when one exists, else a fresh
+    init (`built.init(seed)` on `device`, or a copy of the given
+    `params` with a new optimizer state).  Checkpoint validation (CRC +
+    sizes + shapes) happens inside `checkpoint.io.restore`; a corrupt
+    latest step raises `CheckpointCorruptError` rather than restoring
+    garbage."""
     dev = resolve_device(device)
     step_fn, init_fn = make_train_step(built, opt_cfg, warmup=warmup,
                                        total_steps=total_steps)
@@ -119,12 +121,66 @@ def train(built: Built, n_steps: int, *, seed: int = 0,
     else:
         params = {k: v.detach().to(dev).clone() for k, v in params.items()}
         opt_state = init_state(params)
+    start_step = 0
+    if ckpt_dir and ckpt_io.latest_step(ckpt_dir) is not None:
+        (params, opt_state), start_step = ckpt_io.restore(
+            ckpt_dir, (params, opt_state), device=dev)
+        print_fn(f"restored checkpoint at step {start_step}")
+    return step_fn, params, opt_state, start_step
+
+
+def train(built: Built, n_steps: int, *, seed: int = 0,
+          opt_cfg: Optional[AdamWConfig] = None,
+          ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
+          keep_last: int = 0, resume: bool = False, log_every: int = 10,
+          warmup: int = 100, total_steps: int = 10_000, faults=None,
+          device=None, params: Optional[Dict[str, torch.Tensor]] = None,
+          print_fn=print) -> TrainResult:
+    """Single-device training loop on the synthetic pipeline, as the
+    JAX package's `train`.  `device` defaults to the card (raising
+    without one); `params` starts from given weights (the parity tests
+    carry the JAX package's across) instead of `built.init(seed)`.
+    Each step's host time is taken after the loss is read back, so the
+    device has finished it.
+
+    `resume=True` makes `n_steps` the TOTAL step target: a restored run
+    skips its already-completed steps (restoring at step >= `n_steps`
+    trains nothing).  The default (False) trains `n_steps` more from
+    wherever the restore landed.  With `ckpt_dir` a checkpoint is
+    written every `ckpt_every` steps and at the end; `keep_last > 0`
+    keeps the newest N.  `faults` (a `resilience.faults.FaultSchedule`)
+    injects device losses (`DeviceLost` at the scheduled step) and
+    checkpoint-write crashes (`CheckpointCrashError` mid-save)."""
+    step_fn, params, opt_state, start_step = restore_or_init(
+        built, ckpt_dir, seed=seed, opt_cfg=opt_cfg, warmup=warmup,
+        total_steps=total_steps, device=device, params=params,
+        print_fn=print_fn)
+    dev = next(iter(params.values())).device
     ds = Dataset(built.run.model, built.run.shape, seed=seed)
+    target = n_steps if resume else start_step + n_steps
+    if resume and start_step >= target:
+        print_fn(f"nothing to do: restored step {start_step} >= "
+                 f"target {target}")
+        return TrainResult(0, [], 0.0, {}, start_step=start_step)
+
+    def save(step: int) -> None:
+        crash = (faults.checkpoint_crash_at(step)
+                 if faults is not None else None)
+        ckpt_io.save(ckpt_dir, step, (params, opt_state),
+                     keep_last=keep_last,
+                     crash_after_leaves=(crash.after_leaves
+                                         if crash else None))
+
     losses, step_ms, grad_norms = [], [], []
     tokens = 0
     metrics: Dict = {}
     t0 = time.perf_counter()
-    for s in range(n_steps):
+    for s in range(start_step, target):
+        if faults is not None:
+            ev = faults.device_loss_at(s)
+            if ev is not None:
+                from repro_torch.resilience.faults import DeviceLost
+                raise DeviceLost(ev, s)
         batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                  for k, v in ds.global_batch(s).items()}
         tokens += int(batch["labels"].numel())
@@ -134,10 +190,14 @@ def train(built: Built, n_steps: int, *, seed: int = 0,
         step_ms.append(1e3 * (time.perf_counter() - ts))
         losses.append(loss)
         grad_norms.append(float(metrics["grad_norm"]))
-        if log_every and (s % log_every == 0 or s == n_steps - 1):
-            print(f"step {s:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f}")
+        if log_every and (s % log_every == 0 or s == target - 1):
+            print_fn(f"step {s:5d} loss {loss:.4f} "
+                     f"gnorm {float(metrics['grad_norm']):.3f}")
+        if ckpt_dir and ckpt_every and (s + 1) % ckpt_every == 0:
+            save(s + 1)
     dt = time.perf_counter() - t0
-    return TrainResult(n_steps, losses, tokens / dt,
+    if ckpt_dir:
+        save(target)
+    return TrainResult(target - start_step, losses, tokens / dt,
                        {k: float(v) for k, v in metrics.items()}, step_ms,
-                       grad_norms)
+                       grad_norms, start_step)

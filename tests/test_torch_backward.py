@@ -343,8 +343,9 @@ def test_seg_matmul_grads_match_jax_grad(path, variant):
 def test_launch_counts_name_the_backward_kernels():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
-        "split_matmul": 0, "split_matmul_dgrad": 0, "split_matmul_wgrad": 0,
-        "flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0}
+        "split_matmul": 0, "split_matmul_acc": 0, "split_matmul_dgrad": 0,
+        "split_matmul_wgrad": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0, "ssd_scan": 0}
     assert ops.split_matmul_layout_counts() == {"nn": 0, "nt": 0, "tn": 0}
 
 

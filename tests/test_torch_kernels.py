@@ -156,7 +156,8 @@ def test_attention_ref_matches_jax_oracle():
 
 KERNELS = ["split_matmul", "flash_attention", "ssd_scan"]
 # every counter `ops.launch_counts` keeps, the backward kernels' too
-NO_LAUNCHES = dict.fromkeys(KERNELS + ["split_matmul_dgrad",
+NO_LAUNCHES = dict.fromkeys(KERNELS + ["split_matmul_acc",
+                                       "split_matmul_dgrad",
                                        "split_matmul_wgrad",
                                        "flash_attention_bwd"], 0)
 

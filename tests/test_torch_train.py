@@ -10,8 +10,9 @@
   `built.init(PRNGKey(0))`) and the same synthetic batches: DP-only and
   mixed DP/ZDP plans, remat on and off, microbatch 1 and 2.
 - Microbatching, the chunked cross-entropy (its chunk rule lowered on
-  the port's side), what remat recomputes, the refusals (selective
-  remat, SSM training, checkpoints) and `launch/train.py`.
+  the port's side), what remat recomputes, a plan's remat bits against
+  the JAX package's policy, the refusals (SSM training, a corrupt
+  checkpoint) and `launch/train.py`.
 
 Every tensor is small: reduced configs (2 layers, d <= 256, vocab
 <= 512), seq <= 128, batch <= 4.  Full-width facts are checked without
@@ -63,6 +64,7 @@ from repro.optim import init_state as jinit_state
 from repro.optim import warmup_cosine as jwarmup_cosine
 from repro.optim.adamw import _decay_mask as jmask
 from repro.train.loop import make_train_step as jmake_train_step
+from repro_torch.checkpoint.io import CheckpointCorruptError
 from repro_torch.configs import MeshConfig as TMesh
 from repro_torch.configs import OSDPConfig as TOSDP
 from repro_torch.configs import RunConfig as TRun
@@ -446,17 +448,21 @@ def test_remat_recomputes_each_layer_once(monkeypatch):
 
 def test_plan_remat_bits_and_selective_refusal():
     """A plan's per-slice remat bits: all recompute gives remat True,
-    all keep False, and a mix (a selective plan) is refused, as the JAX
-    package's selective policy is not ported yet."""
-    _, tr = _runs("phi4", "mixed", remat=False)
-    _, tr_on = _runs("phi4", "mixed", remat=True)
+    all keep False, and a mix (a selective plan) compiles to the names
+    to keep, as the JAX package's `_remat_policy` (no longer refused:
+    tests/test_torch_remat.py runs them)."""
+    jr, tr = _runs("phi4", "mixed", remat=False)
+    jr_on, tr_on = _runs("phi4", "mixed", remat=True)
     # the ops outside the plan inherit the global flag
     assert tbuild(tr_on, _plans("mixed", (True,) * 4)[1]).model.remat is True
     assert tbuild(tr, _plans("mixed", (False,) * 4)[1]).model.remat is False
-    for run, bits in ((tr, (True, False, True, False)),
-                      (tr, (True,) * 4), (tr_on, (False,) * 4)):
-        with pytest.raises(NotImplementedError, match="Selective remat"):
-            tbuild(run, _plans("mixed", bits)[1])
+    for (jrun, trun), bits in (((jr, tr), (True, False, True, False)),
+                               ((jr, tr), (True,) * 4),
+                               ((jr_on, tr_on), (False,) * 4)):
+        jplan, tplan = _plans("mixed", bits)
+        got = tbuild(trun, tplan).model.remat
+        assert isinstance(got, tuple) and got
+        assert got == jbuild(jrun, jplan).model.remat
 
 
 # --- the loop and the launcher -------------------------------------------------
@@ -481,10 +487,19 @@ def test_ssm_training_is_refused():
                                                    "labels": toks[:, 1:]})
 
 
-def test_train_refuses_checkpoints():
+def test_train_refuses_checkpoints(tmp_path):
+    """`train` refuses to restore a checkpoint it cannot trust (the
+    whole checkpoint path is tests/test_torch_checkpoint.py): a leaf
+    whose bytes fail the manifest's CRC32 stops the run."""
     _, tr = _runs("qwen")
-    with pytest.raises(NotImplementedError, match="section 1 item 2"):
-        ttrain(tbuild(tr), 1, device="cpu", ckpt_dir="ckpt")
+    built = tbuild(tr)
+    ttrain(built, 1, device="cpu", ckpt_dir=str(tmp_path), log_every=0)
+    leaf = tmp_path / "step_00000001" / "__0__embed__tok.npy"
+    data = bytearray(leaf.read_bytes())
+    data[-1] ^= 0x01
+    leaf.write_bytes(bytes(data))
+    with pytest.raises(CheckpointCorruptError, match="CRC32"):
+        ttrain(built, 1, device="cpu", ckpt_dir=str(tmp_path))
 
 
 def test_launcher_trains_on_cpu(capsys):
