@@ -87,7 +87,21 @@ the final line is not printed):
    steps saving every step, a resume to step 4 in a fresh run, losses
    equal to an uninterrupted 4-step run bit for bit, MB written and
    seconds to save and restore, and a corrupted leaf refused;
-7. print a {"kernels": [...]} line, the card's name and power limit, the
+7. the OSDP plan sharded over torch.distributed: a world-1 NCCL group
+   (a `file://` store under build/; the card is one GPU and NCCL refuses
+   two ranks on one device, so every collective is a copy), then 3 steps
+   each under the forced ZDP plan at remat off (phase 6's weights) and
+   under the mixed DP/ZDP plan of tests/test_torch_train.py at remat on,
+   sharded and on one device without a group: the ZDP plan's losses,
+   grad norms and final parameters bit-identical, the mixed plan's
+   losses within 1e-3; the kernel launches the plan's; the mesh's
+   collectives the plan's (each sharded leaf 2 all-gathers and 1
+   reduce-scatter a use, +1 gather in a recomputed layer; one all-reduce
+   of the DP leaves and one of the norm a step) and a profiled step's
+   NCCL calls the same; step ms and peak against one device and phase
+   6, the peak within one device's plus twice the largest gathered
+   weight;
+8. print a {"kernels": [...]} line, the card's name and power limit, the
    serve and train metrics, and last {"ok": true, "device": {...}}.
 
 Tolerances: 2e-2 absolute + relative for `split_matmul` and
@@ -147,6 +161,11 @@ CKPT_LAYERS = 2             # depth of the checkpoint round trip
 CKPT_STEPS = 2              # steps before the cut; the resume runs to 2x
 GRAD_LAYERS = 2             # depth of the binding gradient check
 GRAD_TOL = 2e-2             # of a gradient leaf's norm, the least tolerance
+SHARD_STEPS = 3             # phase 7: steps a plan, sharded and not
+SHARD_MIXED_OPS = ("layers.attn_qkv", "layers.attn_out", "layers.ffn_w13",
+                   "layers.ffn_w2", "head.out")
+SHARD_MIXED = ("DP", "ZDP", "DP", "ZDP")    # tests/test_torch_train.py
+MIXED_LOSS_TOL = 1e-3
 SOURCES = {
     "split_matmul": ("src/repro_torch/csrc/split_matmul.cu",
                      "src/repro/kernels/split_matmul.py:39"),
@@ -1530,6 +1549,7 @@ def train_phase(torch, args) -> dict:
     ops.reset_launch_counts()
     res = train(built, TRAIN_STEPS, seed=args.seed, warmup=1, device="cuda",
                 params=params, log_every=1)
+    res.params = None       # the runs below start from `params`
     counts = ops.launch_counts()
     layouts = ops.split_matmul_layout_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1593,6 +1613,8 @@ def train_phase(torch, args) -> dict:
                            batch))
     torch.cuda.empty_cache()
     out["checkpoint"] = checkpoint_round_trip(torch, args, built, params)
+    torch.cuda.empty_cache()
+    out["sharded"] = sharded_phase(torch, args, built, params, out)
     return out
 
 
@@ -1820,6 +1842,272 @@ def checkpoint_round_trip(torch, args, built, params) -> dict:
     return out
 
 
+# --- phase 7: the OSDP plan sharded over a world-1 NCCL group --------------
+
+def _segmented(params, pset) -> dict:
+    """Full (single-segment) parameters cut into the segments `pset` lays
+    out along each weight's ZDP axis."""
+    out = {}
+    for path, lay in pset.layouts.items():
+        for seg in lay.segments:
+            out[path + seg.key] = (params[path] if not lay.is_split else
+                                   params[path].narrow(
+                                       lay.spec.zdp_axis, seg.start,
+                                       seg.size).contiguous())
+    return out
+
+
+def _want_collectives(built, steps) -> dict:
+    """(kind, key) -> calls `steps` sharded steps imply: a use of every
+    sharded leaf a step and microbatch (each layer its slice; the
+    embedding one use for its lookup and head), each use 2 all-gathers
+    (forward, backward) and 1 reduce-scatter, +1 all-gather in a
+    recomputed layer; one all-reduce of the DP leaves a step (one per
+    dtype) and one of the gradient norm, which carries the loss."""
+    model = built.model
+    n = steps * max(1, built.run.microbatch)
+    want = {}
+    for leaf in built.pset.sharded():
+        layer = leaf.startswith("layers/")
+        uses = n * (model.cfg.n_layers if layer else 1)
+        want["all_gather", leaf] = uses * (3 if layer and model.remat else 2)
+        want["reduce_scatter", leaf] = uses
+    dp_dtypes = {spec.dtype for spec in built.specs
+                 for leaf, _ in built.pset.segments(spec.path)
+                 if built.pset.placements[leaf] is None}
+    if dp_dtypes:
+        want["all_reduce", "dp"] = steps * len(dp_dtypes)
+    want["all_reduce", "grad_norm"] = steps
+    return want
+
+
+def _by_kind(calls: dict) -> dict:
+    out = {}
+    for (kind, _), n in calls.items():
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def _gathered_bytes(built) -> int:
+    """Bytes of the largest weight a use gathers: a layer's slice of a
+    stacked leaf, or a whole leaf outside the layers."""
+    best = 0
+    for spec in built.specs:
+        for leaf, seg in built.pset.segments(spec.path):
+            if built.pset.placements[leaf] is None:
+                continue
+            shape = list(spec.shape)
+            if spec.zdp_axis is not None:
+                shape[spec.zdp_axis] = seg.size
+            n = math.prod(shape[1:] if spec.stacked else shape)
+            best = max(best, n * spec.dtype.itemsize)
+    return best
+
+
+def _run_steps(torch, built, params, steps, seed, keep=False) -> dict:
+    """`steps` steps of `built` through `train()` from `params`, with the
+    kernel launches and the mesh's collectives counted from zero, the
+    peak memory, and (`keep`) the trained parameters on the host."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import train
+    mesh = built.mesh
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    if mesh is not None:
+        mesh.reset_counts()
+    res = train(built, steps, seed=seed, warmup=1, device="cuda",
+                params=params, log_every=0, print_fn=lambda *a: None)
+    steady = sorted(res.step_ms[1:]) or res.step_ms
+    out = dict(losses=res.losses, grad_norms=res.grad_norms,
+               step_ms=res.step_ms, median_step_ms=steady[len(steady) // 2],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=ops.launch_counts(),
+               collectives=dict(mesh.calls) if mesh is not None else {})
+    if keep:
+        out["params"] = {k: v.detach().cpu() for k, v in res.params.items()}
+    return out
+
+
+def _profiled_collectives(torch, built, params, seed) -> dict:
+    """One sharded step under the profiler: the NCCL collectives it
+    issued by kind (the profiler's `nccl:` ranges on the host, one a
+    call), their device time (`nccl:` ranges on the device; at world 1
+    a gather or reduce-scatter is a device copy), the step's device and
+    wall ms, and the mesh's own counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.plan import data_sharding
+    from repro_torch.data.synthetic import Dataset
+    from repro_torch.train.loop import restore_or_init
+    mesh = built.mesh
+    step_fn, p, st, _ = restore_or_init(built, None, seed=seed, warmup=1,
+                                        device="cuda", params=params)
+    rows = data_sharding(mesh)
+    batch = {k: rows.local(torch.from_numpy(v)).cuda() for k, v in Dataset(
+        built.run.model, built.run.shape, seed=seed).global_batch(0).items()}
+    torch.cuda.synchronize()
+    mesh.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step_fn(p, st, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    calls, nccl_ms, device_ms = {}, 0.0, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU:
+            if ev.key.startswith("nccl:"):
+                kind = next((k for k in ("all_gather", "reduce_scatter",
+                                         "all_reduce") if k in ev.key), None)
+                if kind is None:
+                    _fail(f"sharded: unknown NCCL call {ev.key}")
+                calls[kind] = calls.get(kind, 0) + ev.count
+        elif ev.key.startswith("nccl:"):
+            nccl_ms += ev.device_time_total / 1e3
+        elif ev.self_device_time_total > 0:
+            device_ms += ev.self_device_time_total / 1e3
+    out = dict(nccl_calls=calls, mesh_calls=_by_kind(mesh.calls),
+               nccl_device_ms=nccl_ms, device_ms=device_ms, wall_ms=wall)
+    del p, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(torch, args, built6, params, phase6) -> dict:
+    """Phase 7: a world-1 NCCL group (a `file://` store under build/);
+    3 steps under the forced ZDP plan at remat off (on phase 6's
+    weights) and 3 under the mixed DP/ZDP plan of
+    tests/test_torch_train.py (`MIXED`) at remat on, each sharded and on
+    one device without a group.  At world 1 every collective is a copy
+    and AVG divides by 1: the ZDP plan's losses, grad norms and final
+    parameters must equal the unsharded run's bit for bit, the mixed
+    plan's losses within MIXED_LOSS_TOL.  Checked besides: the kernel
+    launches (the plan's, as unsharded), the mesh's collectives (each
+    sharded leaf 2 gathers and 1 reduce-scatter a use, +1 gather in a
+    recomputed layer; one all-reduce of the DP leaves and one of the
+    norm a step), the NCCL calls of a profiled step against them, and a
+    peak within the unsharded run's (and phase 6's) plus twice the
+    largest gathered weight."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.configs import DeviceInfo, RunConfig, get_arch
+    from repro_torch.core.api import osdp
+    from repro_torch.core.cost_model import Decision
+    from repro_torch.launch.mesh import init_data_mesh
+    from repro_torch.models.registry import build_model
+    if not dist.is_nccl_available():
+        _fail("sharded: this torch has no NCCL")
+    run6 = built6.run
+    S = run6.shape.seq_len
+    store = ROOT / "build" / f"nccl-store-{os.getpid()}"
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mesh = init_data_mesh("nccl", f"file://{store}", 1, 0)
+    out = {"init_s": time.perf_counter() - t0, "backend": mesh.backend,
+           "world": mesh.world}
+    try:
+        zplan = osdp(get_arch(TRAIN_ARCH), run6.shape, run6.mesh,
+                     memory_limit_gib=64.0,
+                     device=DeviceInfo.preset("h100-sxm"), force_mode="ZDP",
+                     checkpointing=False)
+        zrun = dataclasses.replace(run6, osdp=zplan.run.osdp)
+        mixed_dec = {op: Decision(op, SHARD_MIXED) for op in SHARD_MIXED_OPS}
+        mrun = dataclasses.replace(run6, osdp=dataclasses.replace(
+            zplan.run.osdp, force_mode=None, checkpointing=True))
+        cases = (("zdp", zrun, zplan, False),
+                 ("mixed", mrun, SimpleNamespace(decisions=mixed_dec), True))
+        for name, run, plan, remat in cases:
+            plain = build_model(run, plan)
+            sharded = build_model(run, plan, mesh)
+            if plain.model.remat is not remat or not sharded.pset.sharded():
+                _fail(f"sharded {name}: remat {plain.model.remat}, sharded "
+                      f"leaves {sorted(sharded.pset.sharded())}")
+            p = params if name == "zdp" else _segmented(params, plain.pset)
+            exact = name == "zdp"
+            u = _run_steps(torch, plain, p, SHARD_STEPS, args.seed, exact)
+            r = _run_steps(torch, sharded, p, SHARD_STEPS, args.seed, exact)
+            want_l, _ = _want_train_launches(sharded, SHARD_STEPS, S)
+            want_c = _want_collectives(sharded, SHARD_STEPS)
+            if r["launches"] != want_l or u["launches"] != want_l:
+                _fail(f"sharded {name}: launches {r['launches']} (one "
+                      f"device: {u['launches']}), the plan needs {want_l}")
+            if r["collectives"] != want_c:
+                _fail(f"sharded {name}: collectives {r['collectives']}, the "
+                      f"plan needs {want_c}")
+            if exact:
+                same = (r["losses"] == u["losses"]
+                        and r["grad_norms"] == u["grad_norms"]
+                        and all(torch.equal(r["params"][k], u["params"][k])
+                                for k in u["params"]))
+                if not same:
+                    bad = [k for k in u["params"]
+                           if not torch.equal(r["params"][k], u["params"][k])]
+                    _fail(f"sharded {name}: not bit-identical to one device: "
+                          f"losses {r['losses']} vs {u['losses']}, norms "
+                          f"{r['grad_norms']} vs {u['grad_norms']}, "
+                          f"parameters {bad[:5]}")
+                del r["params"], u["params"]
+            worst = max(abs(a - b) / abs(b)
+                        for a, b in zip(r["losses"], u["losses"]))
+            if worst > MIXED_LOSS_TOL:
+                _fail(f"sharded {name}: losses {r['losses']} off one "
+                      f"device's {u['losses']} by {worst:.3g}")
+            gathered = _gathered_bytes(sharded) / 2**30
+            bound = u["peak_mem_gib"] + 2 * gathered
+            if exact:
+                bound = min(bound, phase6["peak_mem_gib"] + 2 * gathered)
+            if not r["peak_mem_gib"] <= bound:
+                _fail(f"sharded {name}: peak {r['peak_mem_gib']:.3f} GiB "
+                      f"above {bound:.3f} (one device {u['peak_mem_gib']:.3f}"
+                      f", phase 6 {phase6['peak_mem_gib']:.3f}, largest "
+                      f"gathered weight {gathered:.3f})")
+            prof = _profiled_collectives(torch, sharded, p, args.seed)
+            want1 = _by_kind(_want_collectives(sharded, 1))
+            if prof["nccl_calls"] != want1 or prof["mesh_calls"] != want1:
+                _fail(f"sharded {name}: a profiled step issued NCCL calls "
+                      f"{prof['nccl_calls']} (mesh counted "
+                      f"{prof['mesh_calls']}), the plan needs {want1}")
+            ops_calls = {}
+            for (kind, leaf), n in r["collectives"].items():
+                spec = next((sp for sp in sharded.specs
+                             if sp.path == leaf.split("@")[0]), None)
+                op = spec.op if spec is not None else leaf
+                ops_calls.setdefault(op, {}).setdefault(kind, 0)
+                ops_calls[op][kind] += n
+            r["collectives"] = {f"{kind} {leaf}": n for (kind, leaf), n
+                                in r["collectives"].items()}
+            out[name] = dict(
+                sharded=r, one_device=u, loss_rel_err=worst,
+                bit_identical=(r["losses"] == u["losses"]
+                               and r["grad_norms"] == u["grad_norms"]),
+                n_sharded_leaves=len(sharded.pset.sharded()),
+                guarded=list(sharded.pset.guarded),
+                largest_gathered_gib=gathered, peak_bound_gib=bound,
+                collectives_by_op=ops_calls, profiled_step=prof)
+            print(f"train {TRAIN_ARCH} sharded {name} (world 1, NCCL; remat "
+                  f"{remat}): {len(sharded.pset.sharded())} leaves sharded; "
+                  f"median step {r['median_step_ms']:.1f} ms (one device "
+                  f"{u['median_step_ms']:.1f}, phase 6 "
+                  f"{phase6['median_step_ms']:.1f}); peak "
+                  f"{r['peak_mem_gib']:.3f} GiB (one device "
+                  f"{u['peak_mem_gib']:.3f}, phase 6 "
+                  f"{phase6['peak_mem_gib']:.3f}, bound {bound:.3f}); "
+                  f"losses " + " ".join(f"{x:.6f}" for x in r["losses"])
+                  + (" bit-identical to one device (norms and parameters "
+                     "too)" if exact else f", {worst:.3g} off one device")
+                  + f"; collectives a step {want1} (profiled NCCL calls "
+                  f"{prof['nccl_calls']}, {prof['nccl_device_ms']:.2f} ms of "
+                  f"{prof['device_ms']:.2f} device ms); by op "
+                  + "; ".join(f"{op} {c}" for op, c in ops_calls.items()))
+            torch.cuda.empty_cache()
+    finally:
+        mesh.destroy()
+        store.unlink(missing_ok=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2006,7 +2294,10 @@ def main(argv=None) -> int:
     trained = train_phase(torch, args)
     report["train"] = trained
     torch.cuda.empty_cache()
-    paths = dict(serves, train=trained)
+    shard = trained["sharded"]
+    paths = dict(serves, train=trained,
+                 **{f"train_sharded_{n}": shard[n]["sharded"]
+                    for n in ("zdp", "mixed")})
 
     # 5. report ---------------------------------------------------------------
     def launches(name):
@@ -2074,6 +2365,15 @@ def main(argv=None) -> int:
               f"median step {r['median_step_ms']:.1f} ms, "
               f"{r['tokens_per_s']:.0f} tok/s, MFU {r['mfu']:.4f}, peak "
               f"{r['peak_mem_gib']:.2f} GiB, losses "
+              + " ".join(f"{x:.4f}" for x in r["losses"]))
+    for name in ("zdp", "mixed"):
+        r, u = shard[name]["sharded"], shard[name]["one_device"]
+        print(f"train metrics {TRAIN_ARCH} sharded {name} (world 1, NCCL, "
+              f"{report['card']}): median step {r['median_step_ms']:.1f} ms "
+              f"(one device {u['median_step_ms']:.1f}, phase 6 "
+              f"{tr['median_step_ms']:.1f}), peak {r['peak_mem_gib']:.3f} "
+              f"GiB (one device {u['peak_mem_gib']:.3f}, phase 6 "
+              f"{tr['peak_mem_gib']:.3f}), losses "
               + " ".join(f"{x:.4f}" for x in r["losses"]))
     ck = tr["checkpoint"]
     print(f"checkpoint metrics {TRAIN_ARCH} ({ck['n_layers']} layers, "

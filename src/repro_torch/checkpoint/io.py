@@ -26,6 +26,14 @@ manifest are on disk, so a writer killed mid-step leaves at most a
 `CheckpointCorruptError`, and a leaf absent from the manifest or of
 another shape than the tree restored into.
 
+Sharded runs: with a data mesh and a placement tree shaped like the
+checkpointed tree (`placements`: each leaf's shard dimension, or None),
+`save` gathers every sharded leaf (a collective all ranks join) and
+rank 0 alone writes the same format; `restore` has every rank read the
+full leaves and keep its shard.  The ranks wait on a barrier before and
+after both, so a checkpoint written at one world size restores at any
+other, and in the JAX package.
+
 `crash_after_leaves` is the fault-injection hook
 (`repro_torch.resilience.faults.CheckpointCrash`): the save raises
 `CheckpointCrashError` after writing that many leaf files, exactly like
@@ -98,19 +106,34 @@ def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _placed(placements: Any, mesh) -> Dict[str, Optional[int]]:
+    """{leaf path: shard dimension or None} of a placement tree."""
+    if mesh is None or placements is None:
+        return {}
+    return _flatten(placements)
+
+
 def save(ckpt_dir: str, step: int, tree: Any, *,
          keep_last: int = 0,
-         crash_after_leaves: Optional[int] = None) -> str:
+         crash_after_leaves: Optional[int] = None,
+         placements: Any = None, mesh=None) -> str:
     """Atomically write one checkpoint step; returns its directory.
 
     `keep_last > 0` prunes older completed steps down to the newest
     `keep_last` after the rename (retention).  `crash_after_leaves`
-    injects a mid-write crash for fault testing (see module docs)."""
+    injects a mid-write crash for fault testing (see module docs); on a
+    mesh every rank raises at the same leaf.  With `mesh` and
+    `placements` every rank calls this and rank 0 writes (module note)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.isdir(tmp):        # stale debris from an earlier crash
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    where = _placed(placements, mesh)
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        mesh.barrier()
+    if writer:
+        if os.path.isdir(tmp):        # stale debris from an earlier crash
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     flat = _flatten(tree)
     manifest = {"step": step, "leaves": {}}
     for i, (path, leaf) in enumerate(flat.items()):
@@ -120,6 +143,10 @@ def save(ckpt_dir: str, step: int, tree: Any, *,
                 f"(tmp dir {tmp} left behind)")
             err.step = step       # lets a supervisor consume the event
             raise err
+        if where.get(path) is not None:
+            leaf = mesh.gather(leaf, where[path], "checkpoint")
+        if not writer:
+            continue
         stored, dtype = _to_numpy(leaf)
         fn = _esc(path) + ".npy"
         np.save(os.path.join(tmp, fn), stored)
@@ -127,15 +154,18 @@ def save(ckpt_dir: str, step: int, tree: Any, *,
             "file": fn, "shape": list(stored.shape), "dtype": dtype,
             "crc32": zlib.crc32(np.ascontiguousarray(stored).tobytes()),
             "nbytes": int(stored.nbytes)}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-        f.flush()
-        os.fsync(f.fileno())
-    if os.path.isdir(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    if keep_last > 0:
-        prune(ckpt_dir, keep_last)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        if keep_last > 0:
+            prune(ckpt_dir, keep_last)
+    if mesh is not None:
+        mesh.barrier()
     return final
 
 
@@ -228,13 +258,19 @@ def verify(ckpt_dir: str, step: Optional[int] = None) -> int:
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
-            device=None) -> Tuple[Any, int]:
+            device=None, placements: Any = None,
+            mesh=None) -> Tuple[Any, int]:
     """Restore into the structure of `like` (dicts, tuples and
     dataclasses of tensors and ints); returns (tree, step).  Each tensor
     leaf lands on `device` (default: the device of the leaf it
     replaces), an int leaf comes back an int.  A corrupt or truncated
     leaf, a leaf absent from the manifest, or one of another shape
-    raises `CheckpointCorruptError`."""
+    raises `CheckpointCorruptError`.  With `mesh` and `placements` the
+    leaves of `like` are the rank's shards: the stored full leaf is
+    checked against the full shape and the rank keeps its part."""
+    where = _placed(placements, mesh)
+    if mesh is not None:
+        mesh.barrier()
     d, manifest, step = _manifest(ckpt_dir, step)
     out: Dict[str, Any] = {}
     for path, leaf in _flatten(like).items():
@@ -244,16 +280,26 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
                 f"manifest (tree structure changed?)")
         meta = manifest["leaves"][path]
         arr = _load_leaf(d, path, meta)
-        want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
-        if tuple(arr.shape) != want:
+        want = list(leaf.shape) if isinstance(leaf, torch.Tensor) else []
+        dim = where.get(path)
+        if dim is not None:
+            want[dim] *= mesh.world
+        if list(arr.shape) != want:
             raise CheckpointCorruptError(
                 f"checkpoint {d}: leaf {path!r} has shape "
-                f"{tuple(arr.shape)}, the tree restored into has {want}")
+                f"{tuple(arr.shape)}, the tree restored into has "
+                f"{tuple(want)}")
         if isinstance(leaf, torch.Tensor):
-            out[path] = _to_torch(arr, meta["dtype"],
-                                  leaf.device if device is None else device)
+            dev = leaf.device if device is None else device
+            if dim is None:
+                out[path] = _to_torch(arr, meta["dtype"], dev)
+            else:
+                out[path] = mesh.shard(_to_torch(arr, meta["dtype"], "cpu"),
+                                       dim).to(dev)
         else:
             out[path] = type(leaf)(arr.item())
+    if mesh is not None:
+        mesh.barrier()
     return _unflatten(out, like), step
 
 

@@ -16,15 +16,22 @@ chunk's weight is a contiguous tensor: `w13` is regrouped once into
 (g, d, two * c) (one copy of the weight a call, whose backward is one
 copy of its gradient) and unbound, so the kernel reads every chunk as
 stored; `w2`'s chunks are row blocks, contiguous already.
+
+On a data mesh `w13` and `w2` may be ZDP weights (`Gathered`, cut by
+`w13_chunks` / `w2_chunks`): each is gathered once for its g chunks in
+the forward and once in the backward.  Gathering each chunk apart (the
+cost model's M_extra / g) is not ported (ROADMAP section 1 item 5).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.collectives import Gathered
 
 
 def chunked_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -51,32 +58,61 @@ def chunked_matmul(x: torch.Tensor, w: torch.Tensor,
     return acc.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1])
 
 
-def chunked_ffn(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor,
-                granularity: int, act: str = "swiglu") -> torch.Tensor:
+def w13_chunks(w13: torch.Tensor, g: int, two: int) -> tuple:
+    """(d, two * ff) -> g contiguous (d, two * ff / g) chunks: chunk j's
+    gate and up columns side by side."""
+    d = w13.shape[0]
+    c = w13.shape[1] // (two * g)
+    # (d, two, g, c) -> (g, d, two * c)
+    return w13.reshape(d, two, g, c).permute(2, 0, 1, 3).reshape(
+        g, d, two * c).unbind(0)
+
+
+def w2_chunks(w2: torch.Tensor, g: int) -> tuple:
+    """(ff, d) -> g row blocks."""
+    return w2.reshape(g, w2.shape[0] // g, w2.shape[-1]).unbind(0)
+
+
+def _chunks(w, cut):
+    """(chunks, their pieces, a context holding the gathered weight) of a
+    tensor or a `Gathered` already cut the same way."""
+    if isinstance(w, Gathered):
+        return w.views, [w.piece(j) for j in range(len(w.views))], w.hold()
+    ws = cut(w)
+    return ws, [None] * len(ws), contextlib.nullcontext()
+
+
+def chunked_ffn(x: torch.Tensor, w13, w2, granularity: int,
+                act: str = "swiglu") -> torch.Tensor:
     """SwiGLU/GeLU FFN with the d_ff dimension processed in g chunks.
 
-    x:(..., d) w13:(d, 2*ff | ff) w2:(ff, d).  Peak hidden activation is
-    ff/g wide; outputs accumulate in fp32.  At g = 1, or when g does not
-    divide ff, the plain FFN."""
+    x:(..., d) w13:(d, 2*ff | ff) w2:(ff, d), each a tensor or a
+    `Gathered` cut by `w13_chunks` / `w2_chunks` at this g (whole at
+    g = 1).  Peak hidden activation is ff/g wide; outputs accumulate in
+    fp32.  At g = 1, or when g does not divide ff, the plain FFN."""
     ff = w2.shape[0]
     d = x.shape[-1]
     g = max(1, granularity)
     x2 = x.reshape(-1, d).contiguous()
     if g == 1 or ff % g != 0:
-        h = _act(ops.matmul(x2, w13), act)
-        y = ops.matmul(h, w2)
+        (w13s,), p13, hold13 = _chunks(w13, lambda w: [w])
+        (w2s,), p2, hold2 = _chunks(w2, lambda w: [w])
+        with hold13, hold2:
+            h = _act(ops.matmul(x2, w13s, pieces=p13 if p13[0] else None),
+                     act)
+            y = ops.matmul(h, w2s, pieces=p2 if p2[0] else None)
         return y.to(x.dtype).reshape(*x.shape[:-1], w2.shape[-1])
     c = ff // g
     two = 2 if act == "swiglu" else 1
-    # (d, two, g, c) -> (g, d, two * c): chunk j's gate and up columns
-    w13s = w13.reshape(d, two, g, c).permute(2, 0, 1, 3).reshape(
-        g, d, two * c).unbind(0)
-    w2s = w2.reshape(g, c, w2.shape[-1]).unbind(0)
+    w13s, p13, hold13 = _chunks(w13, lambda w: w13_chunks(w, g, two))
+    w2s, p2, hold2 = _chunks(w2, lambda w: w2_chunks(w, g))
     acc = torch.zeros((x2.shape[0], w2.shape[-1]), dtype=torch.float32,
                       device=x.device)
-    for w13g, w2g in zip(w13s, w2s):
-        hg = _act(ops.matmul(x2, w13g), act, chunk=c)
-        acc = ops.matmul_acc(hg, w2g, acc)
+    with hold13, hold2:
+        for w13g, q13, w2g, q2 in zip(w13s, p13, w2s, p2):
+            hg = _act(ops.matmul(x2, w13g, pieces=q13 and [q13]), act,
+                      chunk=c)
+            acc = ops.matmul_acc(hg, w2g, acc, q2)
     return acc.to(x.dtype).reshape(*x.shape[:-1], w2.shape[-1])
 
 

@@ -4,13 +4,17 @@ This is the glue between the abstract search (core.search) and the
 model builder (sharding.specs + models.registry): it runs the
 Profiler+SearchEngine+Scheduler pipeline of the paper and exposes the
 result as the `decisions` dict the model builder consumes.  The
-device-placement half of the JAX module (NamedSharding helpers) comes
-with the sharded-execution slice.
+device-placement half of the JAX module (its NamedSharding helpers) is
+`batch_axes`, `data_sharding` and `replicated` over a
+`launch.mesh.DataMesh`: the data axis only (TP, PP and multi-axis data
+meshes are not ported, ROADMAP section 1 item 5).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import DeviceInfo, OSDPConfig, RunConfig
 from repro_torch.core.cost_model import (DP, ZDP, CostEnv, Decision, PlanCost,
@@ -89,3 +93,39 @@ def make_plan(run: RunConfig,
         return Plan(run, desc, decisions, cost, None)
     res = search_plan(desc, run.shape.global_batch, env, run.osdp)
     return Plan(run, desc, res.decisions, res.cost, res)
+
+
+# --- activation / batch placements -------------------------------------------
+
+@dataclass(frozen=True)
+class Placement:
+    """Where a global array lives on a data mesh: split along `dim` over
+    the ranks (rank r holds the r-th of W equal blocks), or replicated
+    (`dim` None)."""
+
+    mesh: object        # launch.mesh.DataMesh
+    dim: Optional[int]
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """The rank's part of the global array `full`."""
+        if self.dim is None:
+            return full
+        return self.mesh.shard(full, self.dim)
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """Mesh axes carrying the global batch: the data axis."""
+    from repro_torch.sharding.specs import data_axis_names
+    return data_axis_names(mesh)
+
+
+def data_sharding(mesh, ndim: int = 2, batch_axis: int = 0) -> Placement:
+    """Global-batch arrays: rank r takes rows [r B/W, (r+1) B/W) of the
+    batch axis; a batch that W does not divide raises when placed."""
+    if not 0 <= batch_axis < ndim:
+        raise ValueError(f"batch axis {batch_axis} of a {ndim}-D array")
+    return Placement(mesh, batch_axis)
+
+
+def replicated(mesh) -> Placement:
+    return Placement(mesh, None)

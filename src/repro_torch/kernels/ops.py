@@ -147,25 +147,42 @@ def tagged_matmul(x: torch.Tensor, ws: List[torch.Tensor],
     return _products(x, ws, transpose_w, tag)
 
 
+def _fetch(pieces, ws, backward: bool) -> List[torch.Tensor]:
+    """The weights' data: each weight itself, or, where `pieces` has a
+    `sharding.collectives.Piece`, the gathered piece it stands for."""
+    if pieces is None:
+        return list(ws)
+    return [w if p is None else (p.backward() if backward else p.forward())
+            for p, w in zip(pieces, ws)]
+
+
+def _release(pieces) -> None:
+    for p in pieces or ():
+        if p is not None:
+            p.release()
+
+
 class _Matmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, transpose_w, tag, via_op, *ws):
+    def forward(ctx, x, transpose_w, tag, via_op, pieces, *ws):
         ctx.save_for_backward(x, *ws)
-        ctx.transpose_w = transpose_w
+        ctx.transpose_w, ctx.pieces = transpose_w, pieces
+        ws = _fetch(pieces, ws, backward=False)
         if via_op:
-            return torch.ops.repro_torch.tagged_matmul(x, list(ws),
-                                                       transpose_w, tag)
-        return _products(x, list(ws), transpose_w, tag)
+            return torch.ops.repro_torch.tagged_matmul(x, ws, transpose_w,
+                                                       tag)
+        return _products(x, ws, transpose_w, tag)
 
     @staticmethod
     def backward(ctx, dy):
         x, *ws = ctx.saved_tensors
+        ws = _fetch(ctx.pieces, ws, backward=True)
         t = ctx.transpose_w
         dx = dws = None
         if len(ws) == 1:
             if ctx.needs_input_grad[0]:
                 dx = split_matmul_dgrad(dy, ws[0], transpose_w=t)
-            if ctx.needs_input_grad[4]:
+            if ctx.needs_input_grad[5]:
                 dws = [split_matmul_wgrad(x, dy, transpose_w=t)]
         else:   # each weight's slice of x; dx is their concatenation
             offs = [0]
@@ -173,34 +190,42 @@ class _Matmul(torch.autograd.Function):
                 offs.append(offs[-1] + w.shape[0])
             if ctx.needs_input_grad[0]:
                 dx = torch.cat([split_matmul_dgrad(dy, w) for w in ws], -1)
-            if any(ctx.needs_input_grad[4:]):
+            if any(ctx.needs_input_grad[5:]):
                 dws = [split_matmul_wgrad(x[:, a:b].contiguous(), dy)
                        for a, b in zip(offs, offs[1:])]
-        return (dx, None, None, None,
+        _release(ctx.pieces)
+        return (dx, None, None, None, None,
                 *(dws if dws is not None else [None] * len(ws)))
 
 
 def matmul(x: torch.Tensor, w, transpose_w: bool = False,
-           tag: str = "") -> torch.Tensor:
+           tag: str = "", pieces=None) -> torch.Tensor:
     """x:(M,K) @ w (or w^T) through `split_matmul`, differentiable: the
     backward is `split_matmul_dgrad` and `split_matmul_wgrad`.  `w` may
     be a list of weights whose rows split K: the sum of x's slices times
     each.  `tag` names the output for a selective checkpoint; it goes
-    through `tagged_matmul` only when gradients are being taken."""
+    through `tagged_matmul` only when gradients are being taken.
+    `pieces` (one entry per weight, None for a weight that is its own
+    data) marks ZDP weights: the weight is then a stand-in of no memory
+    and its `Piece` gathers the data in the forward and again in the
+    backward (`sharding.collectives`)."""
     ws = list(w) if isinstance(w, (list, tuple)) else [w]
     via_op = bool(tag) and torch.is_grad_enabled()
-    return _Matmul.apply(x, transpose_w, tag, via_op, *ws)
+    return _Matmul.apply(x, transpose_w, tag, via_op,
+                         tuple(pieces) if pieces else None, *ws)
 
 
 class _MatmulAcc(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, acc):
+    def forward(ctx, x, w, acc, piece):
         ctx.save_for_backward(x, w)
-        return split_matmul(x, w, acc=acc)
+        ctx.pieces = (piece,)
+        return split_matmul(x, _fetch(ctx.pieces, (w,), False)[0], acc=acc)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
+        (w,) = _fetch(ctx.pieces, (w,), backward=True)
         # The cotangent at the fp32 accumulator is the fp32 image of the
         # cotangent of the x.dtype result the chunked sum is cast to at
         # its end (`core.operator_split`), so casting it back to x.dtype
@@ -210,15 +235,17 @@ class _MatmulAcc(torch.autograd.Function):
             else None
         dw = split_matmul_wgrad(x, dyc) if ctx.needs_input_grad[1] \
             else None
-        return dx, dw, dy if ctx.needs_input_grad[2] else None
+        _release(ctx.pieces)
+        return dx, dw, dy if ctx.needs_input_grad[2] else None, None
 
 
-def matmul_acc(x: torch.Tensor, w: torch.Tensor,
-               acc: torch.Tensor) -> torch.Tensor:
+def matmul_acc(x: torch.Tensor, w: torch.Tensor, acc: torch.Tensor,
+               piece=None) -> torch.Tensor:
     """The fp32 acc + x @ w through `split_matmul`'s accumulating form,
     differentiable: acc's gradient passes straight through, x's and w's
-    are `split_matmul_dgrad` and `split_matmul_wgrad` of its cast."""
-    return _MatmulAcc.apply(x, w, acc)
+    are `split_matmul_dgrad` and `split_matmul_wgrad` of its cast.  A
+    `piece` marks w as a ZDP stand-in, as in `matmul`."""
+    return _MatmulAcc.apply(x, w, acc, piece)
 
 
 class _Attention(torch.autograd.Function):

@@ -1,18 +1,27 @@
-"""Training launcher: the OSDP pipeline, then training on one device.
+"""Training launcher: the OSDP pipeline, then training on one device or
+sharded over the ranks of `torchrun`.
 
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --reduced \\
         --cpu --steps 3
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.train --arch qwen1.5-0.5b --reduced --cpu \\
+        --steps 2 --force-mode ZDP
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --batch 8 \\
         --device h100-sxm --memory-gib 64 --steps 5
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --batch 8 \\
         --device h100-sxm --memory-gib 64 --steps 100 \\
         --ckpt-dir ckpt --ckpt-every 10 --keep-last 2 [--resume]
 
-Runs the OSDP pipeline (describe -> search -> plan) for a one-device
-mesh, builds the model with the plan's segments and remat policy, and
-trains on the synthetic pipeline through the port's kernels.  It runs
-on the card unless `--cpu` is given (the kernels' plain versions);
-without a card and without `--cpu` it raises, and never falls back.
+Runs the OSDP pipeline (describe -> search -> plan) for the data mesh,
+builds the model with the plan's segments and remat policy, and trains
+on the synthetic pipeline through the port's kernels.  It runs on the
+card unless `--cpu` is given (the kernels' plain versions); without a
+card and without `--cpu` it raises, and never falls back.  Under
+`torchrun` (`WORLD_SIZE` and `RANK` set) it plans for W data-parallel
+devices (`MeshConfig((W, 1))`), opens a process group (NCCL on the
+card, gloo with `--cpu`), shards the plan's ZDP segments over the ranks
+and trains on each rank's rows of the global batch; only rank 0 prints.
+Without `torchrun` it trains at world 1, unsharded.
 With `--reduced` and no `--seq`/`--batch` the shape is cut to seq 128
 and batch 4 (smoke scale; the JAX launcher keeps the shape's own).
 
@@ -27,11 +36,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
+
+import torch
 
 from repro_torch.configs import (DeviceInfo, MeshConfig, OSDPConfig,
                                  RunConfig, get_arch, get_shape, reduced)
 from repro_torch.core.plan import make_plan
+from repro_torch.launch.mesh import init_data_mesh, make_mesh_from_config
 from repro_torch.models.registry import build_model, resolve_device
 from repro_torch.optim import AdamWConfig
 from repro_torch.train.loop import train
@@ -71,6 +84,10 @@ def main(argv=None) -> int:
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
     dev = resolve_device("cpu" if args.cpu else None)
+    distributed = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    world = int(os.environ["WORLD_SIZE"]) if distributed else 1
+    rank = int(os.environ["RANK"]) if distributed else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     model_cfg = get_arch(args.arch)
     if args.reduced:
@@ -86,27 +103,44 @@ def main(argv=None) -> int:
         shape = dataclasses.replace(shape,
                                     global_batch=min(shape.global_batch, 4))
 
-    mesh_cfg = MeshConfig((1, 1), ("data", "model"))
+    mesh_cfg = MeshConfig((world, 1), ("data", "model"))
     osdp = OSDPConfig(enabled=not args.no_osdp,
                       memory_limit_bytes=args.memory_gib * 2**30,
                       force_mode=args.force_mode)
     run = RunConfig(model=model_cfg, shape=shape, mesh=mesh_cfg, osdp=osdp)
     device = DeviceInfo.preset(args.device) if args.device else None
     plan = make_plan(run, device)
-    print(plan.summary())
-    built = build_model(run, plan)
-    print(f"remat: {built.model.remat}; microbatch {run.microbatch}; "
-          f"device {dev}")
-    res = train(built, args.steps, seed=args.seed,
-                opt_cfg=AdamWConfig(lr=args.lr), warmup=args.warmup,
-                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                keep_last=args.keep_last, resume=args.resume, device=dev)
+    say(plan.summary())
+    mesh = None
+    if distributed:
+        init_data_mesh("gloo" if args.cpu else "nccl")
+        mesh = make_mesh_from_config(mesh_cfg)
+        dev = resolve_device("cpu" if args.cpu
+                             else f"cuda:{torch.cuda.current_device()}")
+    try:
+        built = build_model(run, plan, mesh)
+        if mesh is not None:
+            sharded = built.pset.sharded()
+            say(f"data mesh: W = {mesh.world} ({mesh.backend}); "
+                f"{len(sharded)} leaves sharded, "
+                f"{len(built.pset.guarded)} ZDP leaves kept whole by the "
+                f"divisibility guard")
+        say(f"remat: {built.model.remat}; microbatch {run.microbatch}; "
+            f"device {dev}")
+        res = train(built, args.steps, seed=args.seed,
+                    opt_cfg=AdamWConfig(lr=args.lr), warmup=args.warmup,
+                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                    keep_last=args.keep_last, resume=args.resume,
+                    device=dev, print_fn=say)
+    finally:
+        if mesh is not None:
+            mesh.destroy()
     if not res.steps:
-        print(f"nothing to train: checkpoint already at step "
-              f"{res.start_step} >= target {args.steps}")
+        say(f"nothing to train: checkpoint already at step "
+            f"{res.start_step} >= target {args.steps}")
         return 0
-    print(f"done: {res.steps} steps, loss {res.losses[0]:.4f} -> "
-          f"{res.losses[-1]:.4f}, {res.tokens_per_s:.0f} tok/s")
+    say(f"done: {res.steps} steps, loss {res.losses[0]:.4f} -> "
+        f"{res.losses[-1]:.4f}, {res.tokens_per_s:.0f} tok/s")
     return 0
 
 

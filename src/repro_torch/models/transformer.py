@@ -15,9 +15,16 @@ names (`save_only_these_names`).  Training runs the dense family
 (`forward`, `loss_fn` with the chunked cross-entropy); SSM training
 waits for an `ssd_scan` backward.  MoE, hybrid, VLM and audio come
 with later slices.
+
+On a data mesh (`pset.mesh`) the ZDP leaves are the rank's shards,
+gathered on use (`sharding.collectives`): each layer weight at its
+product, the embedding (and an untied head) once for the whole forward,
+its lookup and every head product feeding one reduce-scatter of its
+gradient.  Serving runs unsharded only.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -34,6 +41,7 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (AttnGeom, attn_geometry, norm,
                                        positions_for)
+from repro_torch.sharding.collectives import Gathered, lookup
 from repro_torch.sharding.specs import ParamSet, WeightSpec, seg_matmul
 
 LayerParams = Dict[str, torch.Tensor]
@@ -202,9 +210,35 @@ class Model:
         return dec.split if dec.uniform() is not None else 1
 
     # -- embedding / head ---------------------------------------------------
+    @contextlib.contextmanager
+    def _gathered_head(self, params: Dict[str, torch.Tensor]):
+        """`params` with the ZDP leaves outside the layers (the embedding,
+        an untied head) as `Gathered`s, each held over the block: one
+        gather for all of a forward's uses, one for the backward's.
+        Unsharded, or already gathered by an outer block, `params`."""
+        if self.pset.mesh is None:
+            yield params
+            return
+        new = {leaf: Gathered(params[leaf], self.pset.mesh, dim, leaf)
+               for leaf, dim in self.pset.sharded().items()
+               if not leaf.startswith("layers/")
+               and not isinstance(params[leaf], Gathered)}
+        with contextlib.ExitStack() as held:
+            for g in new.values():
+                held.enter_context(g.hold())
+            yield dict(params, **new)
+        for g in new.values():
+            g.end_forward()
+
+    def _unsharded(self, what: str) -> None:
+        if self.pset.mesh is not None:
+            raise NotImplementedError(f"{what} on a data mesh: sharded "
+                                      f"serving is not ported (ROADMAP "
+                                      f"section 1 item 5)")
+
     def embed(self, params: Dict[str, torch.Tensor],
               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return params["embed/tok"][batch["tokens"].long()]
+        return lookup(params["embed/tok"], batch["tokens"])
 
     def logits(self, params: Dict[str, torch.Tensor],
                x: torch.Tensor) -> torch.Tensor:
@@ -215,8 +249,12 @@ class Model:
             # x @ emb^T: the kernel reads the (V, d) embedding as stored
             emb = params["embed/tok"]
             x2 = x.reshape(-1, x.shape[-1]).contiguous()
-            logits = ops.matmul(x2, emb, transpose_w=True).reshape(
-                *x.shape[:-1], emb.shape[0])
+            if isinstance(emb, Gathered):
+                y = ops.matmul(x2, emb.views[0], transpose_w=True,
+                               pieces=[emb.piece()])
+            else:
+                y = ops.matmul(x2, emb, transpose_w=True)
+            logits = y.reshape(*x.shape[:-1], emb.shape[0])
         else:
             logits = seg_matmul(x, params, self.pset, "head/out", 0)
         # mask padded vocab entries: in place on the product's fresh
@@ -266,7 +304,8 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: training runs the dense family; SSM training "
                 f"needs the ssd_scan backward (not ported yet)")
-        x = self.embed(params, batch)
+        with self._gathered_head(params) as params:
+            x = self.embed(params, batch)
         positions = positions_for(cfg, batch, x.shape[1])
         win = window or cfg.sliding_window
         layers = {k: v.unbind(0) for k, v in self._layers(params).items()}
@@ -293,6 +332,10 @@ class Model:
         """Mean next-token cross-entropy (+ 0.01 aux / L) and metrics,
         as the JAX package's `loss_fn`; with the chunked vocab projection
         (`CE_CHUNK`), each chunk's logits under a checkpoint."""
+        with self._gathered_head(params) as params:
+            return self._loss(params, batch)
+
+    def _loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
         x, aux = self.forward(params, batch)
         labels = batch["labels"]
@@ -335,6 +378,7 @@ class Model:
         scalar position or a (B,) vector (continuous batching decodes
         every slot at its own position).  Updates `caches` in place and
         returns (logits (B,1,V), caches)."""
+        self._unsharded("decode_step")
         cfg = self.cfg
         x = params["embed/tok"][tokens.long()]
         layers = self._layers(params)
@@ -364,6 +408,7 @@ class Model:
         `cache_len` sizes the returned KV cache (>= S leaves free slots
         for decode — the continuous engine prefills straight into its
         slot shape); default S."""
+        self._unsharded("prefill")
         cfg = self.cfg
         x = self.embed(params, batch)
         B, S = x.shape[:2]

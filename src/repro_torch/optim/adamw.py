@@ -2,9 +2,11 @@
 
 fp32 master copies and (m, v) moments of every parameter; the global
 gradient norm is clipped in fp32; weight decay skips norms, biases and
-the SSM's small vectors (`_decay_mask`).  On one device every state is
-a full copy (the ZeRO placement of the JAX module's `state_shardings`
-comes with sharded execution).
+the SSM's small vectors (`_decay_mask`).  On a data mesh the master,
+m and v of a ZDP leaf live in the leaf's placement, the rank's shard
+(`state_shardings`: the ZeRO layout), since `init_state` copies the
+rank's parameters; `global_grad_norm` sums the squares of the ZDP
+shards over the ranks and counts each replicated leaf once.
 
 Unlike the JAX package, `apply_update` works in place: the master, m
 and v tensors of `state` are updated and the new bf16 values are copied
@@ -13,7 +15,7 @@ into `params`, so a step holds no second copy of the optimizer state.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Collection, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,19 +52,54 @@ def _decay_mask(path: str) -> float:
     return 0.0 if any(s in path for s in skip) else 1.0
 
 
+def state_shardings(param_placements: Dict[str, Optional[int]],
+                    replicated=None) -> AdamWState:
+    """Optimizer-state placement tree mirroring the params: each state
+    of a leaf in the leaf's placement, the step `replicated`."""
+    return AdamWState(step=replicated, master=dict(param_placements),
+                      m=dict(param_placements), v=dict(param_placements))
+
+
+@torch.no_grad()
+def global_grad_norm(grads: Dict[str, torch.Tensor], mesh=None,
+                     sharded: Collection[str] = (),
+                     extra: Sequence[torch.Tensor] = ()
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(the fp32 norm of every gradient, `extra` summed over the ranks).
+
+    The leaves' sums of squares are added in sorted key order, the JAX
+    package's (its gradient dict iterates so).  On `mesh` the leaves in
+    `sharded` hold the rank's shard, so their sums are added over the
+    ranks, and a replicated leaf counts once (rank 0's): one all-reduce
+    of the per-leaf sums, which carries the fp32 scalars of `extra`
+    (e.g. the loss over W) too.  At world 1 the norm is the unsharded
+    one, bit for bit."""
+    keys = sorted(grads)
+    parts = [torch.sum(grads[k].float() ** 2) for k in keys]
+    if mesh is None:
+        return torch.sqrt(sum(parts)), list(extra)
+    if mesh.rank:
+        parts = [p if k in sharded else torch.zeros_like(p)
+                 for k, p in zip(keys, parts)]
+    v = mesh.all_reduce_sum(torch.stack(parts + [e.float() for e in extra]),
+                            "grad_norm")
+    vals = v.unbind()
+    return torch.sqrt(sum(vals[:len(keys)])), list(vals[len(keys):])
+
+
 @torch.no_grad()
 def apply_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], state: AdamWState,
-                 lr_scale: float
+                 lr_scale: float, gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Dict[str, torch.Tensor], AdamWState, Dict]:
     """One AdamW step in place (see the module note); returns (params,
     state, {"grad_norm", "lr"}) with params and state the updated
-    inputs."""
+    inputs.  `gnorm` is the global gradient norm when the caller has it
+    (a sharded step: `global_grad_norm` on its mesh)."""
     step = state.step + 1
-    # global grad-norm clip (fp32), summed in the JAX package's order
-    # (its gradient dict iterates in sorted key order)
     keys = sorted(params)
-    gnorm = torch.sqrt(sum(torch.sum(grads[k].float() ** 2) for k in keys))
+    if gnorm is None:
+        gnorm, _ = global_grad_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     bc1 = 1.0 - cfg.b1 ** step

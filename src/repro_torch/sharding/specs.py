@@ -11,21 +11,28 @@ Each segment carries its remat bit, resolved from the plan's per-slice
 bits as the JAX package does, and `seg_matmul` names its outputs with
 the JAX package's `checkpoint_name` tags (`kernels.ops.matmul`'s `tag`),
 so `saved_activation_names` compiles a selective plan into the names a
-checkpoint policy keeps.  This slice runs on one device, so segments
-carry their mode but no placement: device sharding (the JAX module's
-NamedSharding helpers) and the `OverlapConfig` prefetch come with the
-sharded-execution slice.
+checkpoint policy keeps.
+
+On a data mesh (`launch.mesh.DataMesh`) a ZDP segment lives on each
+rank as its shard along the weight's ZDP dimension
+(`segment_placement`, the JAX module's `segment_sharding`, with its
+divisibility guard), and its consumers gather it on use
+(`sharding.collectives`): `seg_matmul` gathers each ZDP segment of a
+mixed plan alone.  TP placements, hybrid meshes and the
+`OverlapConfig` prefetch are not ported (ROADMAP section 1 items 5, 6).
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.cost_model import DP, Decision
+from repro_torch.cluster.topology import parse_level_mode
+from repro_torch.core.cost_model import DP, ZDP, ZDP_POD, Decision
 from repro_torch.kernels import ops
+from repro_torch.sharding.collectives import Gathered
 
 
 @dataclass(frozen=True)
@@ -142,16 +149,73 @@ def layout_for(spec: WeightSpec,
                             for i, (m, s, z, idxs) in enumerate(merged)])
 
 
+def data_axis_names(mesh) -> Tuple[str, ...]:
+    """Mesh axes carrying the data-parallel extent (every axis that is
+    not model/pipe).  The single definition of this rule;
+    `core.plan.batch_axes` delegates here."""
+    return tuple(a for a in mesh.axis_names if a not in ("model", "pipe"))
+
+
+def _zdp_axes_names(mode: str, mesh) -> Optional[Tuple[str, ...]]:
+    """Mesh axes a sharding mode spreads the weight over.  ZDP takes the
+    whole data extent; level-k modes (`ZDP@k` / the depth-2 alias
+    ZDP_POD) take the k innermost data axes, which on a one-axis data
+    mesh is the data axis."""
+    if mode == DP:
+        return None
+    data_axes = data_axis_names(mesh)
+    if mode == ZDP:
+        return data_axes
+    if mode == ZDP_POD:
+        return data_axes[-1:]
+    k = parse_level_mode(mode)
+    if k is not None:
+        return data_axes[-k:]
+    raise ValueError(mode)
+
+
+def segment_placement(spec: WeightSpec, seg: Segment,
+                      seg_shape: Tuple[int, ...], mesh) -> Optional[int]:
+    """The dimension a segment's leaf is sharded on over `mesh`, or None
+    (replicated: a DP segment, a weight OSDP never shards, or the
+    divisibility guard: a ZDP dimension the ranks do not divide stays
+    whole and is reduced like DP)."""
+    names = _zdp_axes_names(seg.mode, mesh)
+    if names is None or spec.zdp_axis is None:
+        return None
+    n = math.prod(mesh.shape[a] for a in names)
+    if seg_shape[spec.zdp_axis] % n:
+        return None
+    return spec.zdp_axis
+
+
 @dataclass
 class ParamSet:
-    """Segmentation metadata of a materialized (or declared) plan."""
+    """Segmentation metadata of a materialized (or declared) plan and,
+    on a data mesh, each leaf's placement: the dimension its shard is
+    cut along, or None for a replicated leaf."""
 
     layouts: Dict[str, SegLayout]              # weight path -> layout
+    mesh: Optional[object] = None              # launch.mesh.DataMesh
+    placements: Dict[str, Optional[int]] = field(default_factory=dict)
+    # ZDP leaves the divisibility guard keeps replicated
+    guarded: Tuple[str, ...] = ()
 
     def segments(self, path: str) -> List[Tuple[str, Segment]]:
         """[(leaf_key, segment)] for a declared weight path."""
         lay = self.layouts[path]
         return [(path + s.key, s) for s in lay.segments]
+
+    def sharded(self) -> Dict[str, int]:
+        """{leaf: dimension} of the leaves sharded over the mesh."""
+        return {k: d for k, d in self.placements.items() if d is not None}
+
+    def local(self, params: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """The rank's part of full parameters, keyed by leaf."""
+        return {k: (self.mesh.shard(v, self.placements[k])
+                    if self.placements.get(k) is not None else v)
+                for k, v in params.items()}
 
 
 def seg_shape(spec: WeightSpec, seg: Segment) -> Tuple[int, ...]:
@@ -163,11 +227,26 @@ def seg_shape(spec: WeightSpec, seg: Segment) -> Tuple[int, ...]:
 
 
 def plan_layouts(specs: Sequence[WeightSpec],
-                 decisions: Optional[Dict[str, Decision]]) -> ParamSet:
-    """The plan's segmentation of every weight, without allocating."""
-    return ParamSet({spec.path: layout_for(
+                 decisions: Optional[Dict[str, Decision]],
+                 mesh=None) -> ParamSet:
+    """The plan's segmentation of every weight and, on `mesh`, every
+    leaf's placement, without allocating."""
+    layouts = {spec.path: layout_for(
         spec, decisions.get(spec.op) if decisions else None)
-        for spec in specs})
+        for spec in specs}
+    if mesh is None:
+        return ParamSet(layouts)
+    placements: Dict[str, Optional[int]] = {}
+    guarded = []
+    for spec in specs:
+        for seg in layouts[spec.path].segments:
+            leaf = spec.path + seg.key
+            dim = segment_placement(spec, seg, seg_shape(spec, seg), mesh)
+            placements[leaf] = dim
+            if (dim is None and spec.zdp_axis is not None
+                    and _zdp_axes_names(seg.mode, mesh) is not None):
+                guarded.append(leaf)
+    return ParamSet(layouts, mesh, placements, tuple(guarded))
 
 
 def _init_tensor(spec: WeightSpec, shape: Tuple[int, ...],
@@ -195,17 +274,21 @@ def _init_tensor(spec: WeightSpec, shape: Tuple[int, ...],
 
 def build_param_set(specs: Sequence[WeightSpec],
                     decisions: Optional[Dict[str, Decision]],
-                    gen: torch.Generator, device
+                    gen: torch.Generator, device, mesh=None
                     ) -> Tuple[Dict[str, torch.Tensor], ParamSet]:
     """Random parameters from `gen` on `device`, one tensor per segment,
-    plus the layouts.  The draws differ from `jax.random`: tests carry
-    JAX parameters across with `repro_torch.convert.params_from_jax`."""
-    pset = plan_layouts(specs, decisions)
+    plus the layouts.  On `mesh` each rank draws every full tensor from
+    the one generator and keeps its shard, so a world-W run starts from
+    the world-1 weights.  The draws differ from `jax.random`: tests
+    carry JAX parameters across with `repro_torch.convert.params_from_jax`."""
+    pset = plan_layouts(specs, decisions, mesh)
     params: Dict[str, torch.Tensor] = {}
     for spec in specs:
         for seg in pset.layouts[spec.path].segments:
-            params[spec.path + seg.key] = _init_tensor(
-                spec, seg_shape(spec, seg), gen, device)
+            leaf = spec.path + seg.key
+            full = _init_tensor(spec, seg_shape(spec, seg), gen, device)
+            params[leaf] = pset.local({leaf: full})[leaf] \
+                if mesh is not None else full
     return params, pset
 
 
@@ -242,19 +325,43 @@ def saved_activation_names(layouts: Dict[str, SegLayout],
 
 # --- helpers used by model forward passes -----------------------------------
 
+def weight_use(params: Dict[str, torch.Tensor], pset: ParamSet, leaf: str,
+               split=None) -> Tuple[object, bool]:
+    """(the leaf as its consumers take it, whether it is new here): the
+    tensor itself, or for a ZDP shard a new `Gathered` of it (cut into
+    pieces by `split`), whose forward the caller ends after its uses.  A
+    leaf already a `Gathered` (the model's head leaves over a step) is
+    taken as it is.  The dimension accounts for the layer axis being
+    indexed away inside the per-layer loop."""
+    w = params[leaf]
+    dim = pset.placements.get(leaf)
+    if isinstance(w, Gathered) or dim is None:
+        return w, False
+    spec = pset.layouts[leaf.split("@")[0]].spec
+    if spec.stacked and w.ndim == len(spec.shape) - 1:
+        dim -= 1
+    return Gathered(w, pset.mesh, dim, leaf, split), True
+
+
 def gather_weight(params: Dict[str, torch.Tensor], pset: ParamSet,
                   path: str) -> torch.Tensor:
     """Concatenate a weight's segments back (for ops that don't exploit
-    sequential slice processing).  The axis accounts for the layer axis
-    being indexed away inside the per-layer loop."""
+    sequential slice processing), each ZDP segment gathered alone.  The
+    axis accounts for the layer axis being indexed away inside the
+    per-layer loop."""
     segs = pset.segments(path)
-    if len(segs) == 1:
-        return params[segs[0][0]]
+    parts = []
+    for leaf, _ in segs:
+        w, _ = weight_use(params, pset, leaf)
+        parts.append(w.mesh.gather(w.shard, w.dim, leaf)
+                     if isinstance(w, Gathered) else w)
+    if len(parts) == 1:
+        return parts[0]
     spec = pset.layouts[path].spec
     axis = spec.zdp_axis
-    if spec.stacked and params[segs[0][0]].ndim == len(spec.shape) - 1:
+    if spec.stacked and parts[0].ndim == len(spec.shape) - 1:
         axis -= 1
-    return torch.cat([params[k] for k, _ in segs], dim=axis)
+    return torch.cat(parts, dim=axis)
 
 
 def seg_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -270,36 +377,47 @@ def seg_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor],
     Outputs carry the JAX package's checkpoint tags: the weight path on
     a single segment's output and on the sum (one operator over all
     segments, so only the whole output has a name), each leaf's name on
-    its part of a concatenation."""
+    its part of a concatenation.  On a mesh each ZDP segment is gathered
+    on use, alone (`weight_use`)."""
     segs = pset.segments(path)
     spec = pset.layouts[path].spec
     if in_axis_in_weight != 0:
         raise NotImplementedError("contractions over a weight's output "
                                   "axis come with the MoE slice")
+    uses = [weight_use(params, pset, leaf) for leaf, _ in segs]
+    ws = [w for w, _ in uses]
     if len(segs) == 1:
-        return _contract(x, params[segs[0][0]], path)
-    zdp_local = spec.zdp_axis - (1 if spec.stacked else 0)
-    if zdp_local == in_axis_in_weight:
+        y = _contract(x, ws[0], path)
+    elif spec.zdp_axis - (1 if spec.stacked else 0) == in_axis_in_weight:
         # sum variant (input-dim split, Figure 4): x's slices times the
         # segments, summed in segment order
-        return _contract(x, [params[leaf] for leaf, _ in segs], path)
-    # concat variant (output-dim split): per-segment names, so remat
-    # stays a per-slice choice
-    return torch.cat([_contract(x, params[leaf], leaf) for leaf, _ in segs],
-                     dim=-1)
+        y = _contract(x, ws, path)
+    else:
+        # concat variant (output-dim split): per-segment names, so remat
+        # stays a per-slice choice
+        y = torch.cat([_contract(x, w, leaf)
+                       for w, (leaf, _) in zip(ws, segs)], dim=-1)
+    for w, new in uses:
+        if new:
+            w.end_forward()
+    return y
 
 
 def _contract(x: torch.Tensor, w, tag: str = "") -> torch.Tensor:
     """x[..., K] @ w:(K, N), through the `split_matmul` kernel; `w` may
     be a list of (K_j, N) row blocks of the weight (sum K_j = K), whose
-    products with x's matching slices are summed.  `tag` names the
-    output for a selective checkpoint."""
+    products with x's matching slices are summed.  A weight may be a
+    `Gathered` ZDP weight (gathered on use).  `tag` names the output for
+    a selective checkpoint."""
     ws = w if isinstance(w, list) else [w]
-    if any(t.ndim != 2 for t in ws):
+    ts = [v.views[0] if isinstance(v, Gathered) else v for v in ws]
+    pieces = [v.piece() if isinstance(v, Gathered) else None for v in ws]
+    if any(t.ndim != 2 for t in ts):
         raise NotImplementedError(
-            f"contraction with a {ws[0].ndim}-D weight (expert weights "
+            f"contraction with a {ts[0].ndim}-D weight (expert weights "
             f"come with the MoE slice)")
     K = x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
-    return ops.matmul(x2, w, tag=tag).reshape(*x.shape[:-1],
-                                               ws[0].shape[1])
+    return ops.matmul(x2, ts, tag=tag,
+                      pieces=pieces if any(pieces) else None).reshape(
+        *x.shape[:-1], ts[0].shape[1])

@@ -1,4 +1,5 @@
-"""Training loop: the JAX package's `train/loop.py` on one device.
+"""Training loop: the JAX package's `train/loop.py`, on one device or
+sharded over a data mesh.
 
 `make_train_step(built, ...)` returns (step_fn, init_fn), as there;
 PyTorch runs eagerly, so step_fn is a plain function: value and grads
@@ -7,6 +8,15 @@ warmup-cosine scale, and the in-place AdamW update.  Every product and
 attention of the forward and backward goes through the port's kernels
 (`kernels.ops`): on a card the CUDA kernels, on the CPU their plain
 versions.
+
+On a data mesh (`built.mesh`, the JAX package's mesh branch) each rank
+takes its rows of the global batch and holds the plan's ZDP leaves and
+their AdamW states as shards.  A ZDP leaf's gradient is reduce-scattered
+in the backward (`sharding.collectives`); the DP leaves' gradients are
+all-reduced (mean) once after it, and one more all-reduce gives the
+global gradient norm and the global loss.  Loss and gradients are the
+global batch's mean, whatever the split; microbatching cuts a rank's
+rows.  Checkpoints gather the shards and are written by rank 0.
 
 `restore_or_init` and `train`'s checkpoint arguments are the JAX
 package's: crash-safe checkpoints in its on-disk format
@@ -28,9 +38,10 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.data.synthetic import Dataset
-from repro_torch.models.registry import Built, resolve_device
+from repro_torch.models.registry import Built, input_shardings, resolve_device
 from repro_torch.optim import (AdamWConfig, AdamWState, apply_update,
                                init_state, warmup_cosine)
+from repro_torch.optim.adamw import global_grad_norm, state_shardings
 
 
 def loss_and_grads(model, params: Dict[str, torch.Tensor],
@@ -70,16 +81,28 @@ def make_train_step(built: Built, opt_cfg: Optional[AdamWConfig] = None,
                     ) -> Tuple[Callable, Callable]:
     """(step_fn, init_fn): step_fn(params, opt_state, batch) -> (params,
     opt_state, metrics), updating params and opt_state in place;
-    init_fn(seed, device) -> (params, opt_state)."""
+    init_fn(seed, device) -> (params, opt_state).  On `built.mesh`,
+    params, opt_state and batch are the rank's (`Built.init`, its rows
+    of the global batch), and metrics' loss and grad_norm are global
+    (ce, aux and tokens are the rank's)."""
     opt_cfg = opt_cfg or AdamWConfig()
     model = built.model
     micro = built.run.microbatch
+    mesh = built.mesh
+    sharded = frozenset(built.pset.sharded())
 
     def step(params, opt_state: AdamWState, batch):
         loss, metrics, grads = loss_and_grads(model, params, batch, micro)
         lr_scale = warmup_cosine(opt_state.step + 1, warmup, total_steps)
+        gnorm = None
+        if mesh is not None:
+            dp = {k: g for k, g in grads.items() if k not in sharded}
+            if dp:
+                grads.update(mesh.all_reduce_mean(dp, "dp"))
+            gnorm, (loss,) = global_grad_norm(grads, mesh, sharded,
+                                              [loss / mesh.world])
         params, opt_state, opt_metrics = apply_update(
-            opt_cfg, params, grads, opt_state, lr_scale)
+            opt_cfg, params, grads, opt_state, lr_scale, gnorm)
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     def init(seed: int = 0, device=None):
@@ -98,6 +121,7 @@ class TrainResult:
     step_ms: list = field(default_factory=list)   # host clock, synced
     grad_norms: list = field(default_factory=list)
     start_step: int = 0
+    params: Optional[Dict[str, torch.Tensor]] = None  # the trained ones
 
 
 def restore_or_init(built: Built, ckpt_dir: Optional[str], *,
@@ -109,10 +133,10 @@ def restore_or_init(built: Built, ckpt_dir: Optional[str], *,
     """(step_fn, params, opt_state, start_step): resume from the latest
     *valid* checkpoint under `ckpt_dir` when one exists, else a fresh
     init (`built.init(seed)` on `device`, or a copy of the given
-    `params` with a new optimizer state).  Checkpoint validation (CRC +
-    sizes + shapes) happens inside `checkpoint.io.restore`; a corrupt
-    latest step raises `CheckpointCorruptError` rather than restoring
-    garbage."""
+    `params` with a new optimizer state; on a mesh the rank's shards of
+    them).  Checkpoint validation (CRC + sizes + shapes) happens inside
+    `checkpoint.io.restore`; a corrupt latest step raises
+    `CheckpointCorruptError` rather than restoring garbage."""
     dev = resolve_device(device)
     step_fn, init_fn = make_train_step(built, opt_cfg, warmup=warmup,
                                        total_steps=total_steps)
@@ -120,13 +144,25 @@ def restore_or_init(built: Built, ckpt_dir: Optional[str], *,
         params, opt_state = init_fn(seed, dev)
     else:
         params = {k: v.detach().to(dev).clone() for k, v in params.items()}
+        if built.mesh is not None:
+            params = built.pset.local(params)
         opt_state = init_state(params)
     start_step = 0
     if ckpt_dir and ckpt_io.latest_step(ckpt_dir) is not None:
         (params, opt_state), start_step = ckpt_io.restore(
-            ckpt_dir, (params, opt_state), device=dev)
+            ckpt_dir, (params, opt_state), device=dev,
+            **_ckpt_placement(built))
         print_fn(f"restored checkpoint at step {start_step}")
     return step_fn, params, opt_state, start_step
+
+
+def _ckpt_placement(built: Built) -> Dict:
+    """`checkpoint.io`'s placement arguments for (params, opt_state) on
+    the built model's mesh (none unsharded)."""
+    if built.mesh is None:
+        return {}
+    pp = built.pset.placements
+    return dict(placements=(pp, state_shardings(pp)), mesh=built.mesh)
 
 
 def train(built: Built, n_steps: int, *, seed: int = 0,
@@ -136,12 +172,14 @@ def train(built: Built, n_steps: int, *, seed: int = 0,
           warmup: int = 100, total_steps: int = 10_000, faults=None,
           device=None, params: Optional[Dict[str, torch.Tensor]] = None,
           print_fn=print) -> TrainResult:
-    """Single-device training loop on the synthetic pipeline, as the
-    JAX package's `train`.  `device` defaults to the card (raising
-    without one); `params` starts from given weights (the parity tests
-    carry the JAX package's across) instead of `built.init(seed)`.
-    Each step's host time is taken after the loss is read back, so the
-    device has finished it.
+    """Training loop on the synthetic pipeline, as the JAX package's
+    `train`.  `device` defaults to the card (raising without one);
+    `params` starts from given full weights (the parity tests carry the
+    JAX package's across) instead of `built.init(seed)`.  Each step's
+    host time is taken after the loss is read back, so the device has
+    finished it.  On `built.mesh` every rank runs it: each takes its
+    rows of `Dataset.global_batch(s)`, and every rank reports the global
+    loss and gradient norm; `TrainResult.params` are the rank's.
 
     `resume=True` makes `n_steps` the TOTAL step target: a restored run
     skips its already-completed steps (restoring at step >= `n_steps`
@@ -169,7 +207,8 @@ def train(built: Built, n_steps: int, *, seed: int = 0,
         ckpt_io.save(ckpt_dir, step, (params, opt_state),
                      keep_last=keep_last,
                      crash_after_leaves=(crash.after_leaves
-                                         if crash else None))
+                                         if crash else None),
+                     **_ckpt_placement(built))
 
     losses, step_ms, grad_norms = [], [], []
     tokens = 0
@@ -181,9 +220,13 @@ def train(built: Built, n_steps: int, *, seed: int = 0,
             if ev is not None:
                 from repro_torch.resilience.faults import DeviceLost
                 raise DeviceLost(ev, s)
-        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v))
                  for k, v in ds.global_batch(s).items()}
         tokens += int(batch["labels"].numel())
+        if built.mesh is not None:
+            place = input_shardings(built.run, built.mesh, batch)
+            batch = {k: place[k].local(v) for k, v in batch.items()}
+        batch = {k: v.to(dev) for k, v in batch.items()}
         ts = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
@@ -200,4 +243,4 @@ def train(built: Built, n_steps: int, *, seed: int = 0,
         save(target)
     return TrainResult(target - start_step, losses, tokens / dt,
                        {k: float(v) for k, v in metrics.items()}, step_ms,
-                       grad_norms, start_step)
+                       grad_norms, start_step, params)
