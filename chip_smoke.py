@@ -101,8 +101,27 @@ the final line is not printed):
    NCCL calls the same; step ms and peak against one device and phase
    6, the peak within one device's plus twice the largest gathered
    weight;
-8. print a {"kernels": [...]} line, the card's name and power limit, the
-   serve and train metrics, and last {"ok": true, "device": {...}}.
+8. calibration and the planner against the card: the three sweeps of
+   `python -m repro_torch calibrate` at the committed h100-sxm profile's
+   ladder (square bf16 products of 32 to 16,384 through `split_matmul`)
+   and remat chain (depth 8, width 16,384, batch 64, plain and under
+   `torch.utils.checkpoint`; forward, dgrad and wgrad through the
+   kernels), launch counters zeroed just before and read just after and
+   held to the counts the sweeps imply; a world-1 mesh moves no bytes
+   and fits no link; no raw achieved rate above 989 TFLOP/s; each ladder
+   product and the chain's three products against their plain
+   versions; the checkpointed chain's gradients equal to the plain
+   chain's bit for bit; the fitted profile round-trips JSON and the
+   committed one loads through `store.load_and_register`; then phase
+   6's 64 GiB and 20 GiB plans, phase 3's phi4 serve plan and phase 7's
+   forced ZDP plan replanned with the preset and with the committed
+   profile: the decisions that differ, the estimated step ms and GiB
+   under each beside the measured step and peak, and the fitted remat
+   factor beside the model's global remat step over its remat-off step
+   (an estimate's error is reported, not a gate);
+9. print a {"kernels": [...]} line, the card's name and power limit, the
+   serve, train and calibration metrics, and last {"ok": true,
+   "device": {...}}.
 
 Tolerances: 2e-2 absolute + relative for `split_matmul` and
 `flash_attention` in bf16 (one bf16 ulp of an O(1) output; the two sides
@@ -166,6 +185,12 @@ SHARD_MIXED_OPS = ("layers.attn_qkv", "layers.attn_out", "layers.ffn_w13",
                    "layers.ffn_w2", "head.out")
 SHARD_MIXED = ("DP", "ZDP", "DP", "ZDP")    # tests/test_torch_train.py
 MIXED_LOSS_TOL = 1e-3
+# phase 8: the sweeps of the committed h100-sxm profile
+# (`python -m repro_torch calibrate`), at its ladder and remat chain
+CALIBRATE_PROFILE = "src/repro_torch/calibrate/profiles/h100-sxm.json"
+CALIBRATE_LADDER = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+CALIBRATE_REMAT = (8, 16384, 64)            # depth, width, batch
+CALIBRATE_REPEATS = 3
 SOURCES = {
     "split_matmul": ("src/repro_torch/csrc/split_matmul.cu",
                      "src/repro/kernels/split_matmul.py:39"),
@@ -2108,6 +2133,221 @@ def sharded_phase(torch, args, built6, params, phase6) -> dict:
     return out
 
 
+# --- phase 8: calibration and the planner against the card -----------------
+
+def _replan(profile, serves, trained) -> dict:
+    """Phase 6's 64 GiB and SELECTIVE_GIB plans, phase 3's phi4 serve plan
+    and phase 7's forced ZDP plan, planned with the preset (`profile`
+    None) and with `profile`: the decisions that differ, the estimates
+    under each, and what the card measured for the same plan."""
+    from repro_torch.configs import (DeviceInfo, MeshConfig, ShapeConfig,
+                                     get_arch, get_shape)
+    from repro_torch.core.api import osdp, search_serve
+    from repro_torch.core.cost_model import CostEnv, serving_plan_cost
+    from repro_torch.core.descriptions import describe
+    h100 = DeviceInfo.preset("h100-sxm")
+    mesh = MeshConfig((1, 1), ("data", "model"))
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=TRAIN_BATCH)
+    qw, phi = get_arch(TRAIN_ARCH), get_arch(ARCHS[0])
+    tr, sv = trained, serves[ARCHS[0]]
+    zdp = tr["sharded"]["zdp"]["sharded"]
+
+    def train_plan(gib, **kw):
+        return lambda p: osdp(qw, shape, mesh, memory_limit_gib=gib,
+                              device=h100, profile=p, **kw)
+
+    train_cases = (
+        ("train 64 GiB selective", train_plan(64.0,
+                                              checkpointing="selective"), tr),
+        (f"train {SELECTIVE_GIB:g} GiB selective",
+         train_plan(SELECTIVE_GIB, checkpointing="selective"),
+         tr["selective"]),
+        ("train forced ZDP, world 1", train_plan(
+            64.0, force_mode="ZDP", checkpointing=False), zdp))
+    out = {}
+    for name, make, meas in train_cases:
+        pre, fitted = make(None), make(profile)
+        out[name] = dict(
+            differ=_differ(pre, fitted),
+            est_step_ms={"preset": pre.cost.time * 1e3,
+                         "fitted": fitted.cost.time * 1e3},
+            est_mem_gib={"preset": pre.cost.memory / 2**30,
+                         "fitted": fitted.cost.memory / 2**30},
+            measured_step_ms=meas["median_step_ms"],
+            measured_peak_gib=meas["peak_mem_gib"])
+
+    # serving: the estimates at the plan's own slots, and the decode step
+    # and memory at the slots the card served with
+    slots = sv["slots"]
+    desc_pre = describe(phi, ShapeConfig("serve_prefill", 512, 1, "prefill"))
+    desc_dec = describe(phi, ShapeConfig("serve_decode", 1, 1, "decode"))
+    rows = {}
+    for key, p in (("preset", None), ("fitted", profile)):
+        plan = search_serve(phi, prompt_len=512, decode_len=32, n_devices=1,
+                            memory_limit_gib=64.0, device=h100, profile=p)
+        env = CostEnv(h100, mesh, checkpointing=False, train=False,
+                      profile=p)
+        at = serving_plan_cost(desc_pre, desc_dec, plan.decisions,
+                               plan.workload, env, slots)
+        rows[key] = (plan, at)
+    (pre, pre_at), (fit_, fit_at) = rows["preset"], rows["fitted"]
+    out["serve phi4 (64 GiB)"] = dict(
+        differ=_differ(pre, fit_),
+        plan_slots={"preset": pre.slots_per_device,
+                    "fitted": fit_.slots_per_device},
+        est_ttft_ms={"preset": pre.cost.ttft * 1e3,
+                     "fitted": fit_.cost.ttft * 1e3},
+        est_decode_step_ms_plan_slots={
+            "preset": pre.cost.decode_step_time * 1e3,
+            "fitted": fit_.cost.decode_step_time * 1e3},
+        slots=slots,
+        est_decode_step_ms={"preset": pre_at.decode_step_time * 1e3,
+                            "fitted": fit_at.decode_step_time * 1e3},
+        est_mem_gib={"preset": pre_at.memory / 2**30,
+                     "fitted": fit_at.memory / 2**30},
+        measured_prefill512_ms=sv["prefill512_ms"],
+        measured_decode_step_ms=sv["decode_step_ms"],
+        measured_peak_gib=sv["peak_mem_gib"])
+    return out
+
+
+def _differ(a, b) -> dict:
+    """The operators whose (modes, remat) differ between two plans."""
+    return {op: [list(d.modes), d.remat, list(b.decisions[op].modes),
+                 b.decisions[op].remat]
+            for op, d in a.decisions.items()
+            if (d.modes, d.remat) != (b.decisions[op].modes,
+                                      b.decisions[op].remat)}
+
+
+def calibrate_phase(torch, args, serves, trained) -> dict:
+    """Phase 8: the three sweeps of `python -m repro_torch calibrate` on
+    the card at the committed profile's ladder and remat chain, with the
+    launch counts zeroed just before and read just after (the ladder and
+    the chain through `split_matmul`, its dgrad and wgrad); the fits; no
+    raw rate above PEAK_BF16; each ladder product and the chain's
+    products against their plain versions; the checkpointed chain's
+    gradients equal to the plain chain's bit for bit; the fitted profile
+    round-trips JSON and the committed one loads through
+    `store.load_and_register`; then the plans replanned with the preset
+    and with the committed profile, beside what phases 3, 6 and 7
+    measured (an estimate's error is reported, not a gate)."""
+    from repro_torch.calibrate import bench, fit, store
+    from repro_torch.calibrate.profile import CalibrationProfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    depth, width, batch = CALIBRATE_REMAT
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    mm = bench.matmul_sweep(CALIBRATE_LADDER, repeats=CALIBRATE_REPEATS,
+                            device="cuda")
+    t_plain, t_remat = bench.remat_sweep(depth, width, batch,
+                                         CALIBRATE_REPEATS, "cuda")
+    counts = ops.launch_counts()
+    sweep_s = time.perf_counter() - t0
+    calls = 1 + CALIBRATE_REPEATS          # a warm-up, then the repeats
+    want = dict.fromkeys(counts, 0)
+    want.update(split_matmul=calls * (len(CALIBRATE_LADDER) + 3 * depth),
+                split_matmul_dgrad=2 * calls * (depth - 1),
+                split_matmul_wgrad=2 * calls * depth)
+    if counts != want:
+        _fail(f"calibrate: the sweeps launched {counts}, the ladder and "
+              f"the remat chain need {want}")
+    # one card: the data axis spans 1, so no bytes move and no link fits
+    sweeps = bench.collective_sweep(make_host_mesh(), bench.DEFAULT_BW_MIB,
+                                    CALIBRATE_REPEATS)
+    links = fit.fit_link_calibrations(sweeps)
+    if any(sweeps.values()) or links:
+        _fail(f"calibrate: a world-1 mesh moved bytes: {sweeps}")
+    rates = [f / s for f, s in mm]
+    if max(rates) > PEAK_BF16:
+        _fail(f"calibrate: an achieved rate of {max(rates):.4g} FLOP/s is "
+              f"above the card's peak {PEAK_BF16:.4g}")
+    curve = fit.fit_efficiency_curve(mm, peak_flops=PEAK_BF16)
+    remat = fit.fit_remat_factor(t_plain, t_remat)
+    fitted = CalibrationProfile(
+        device="h100-sxm", efficiency=curve, links=links,
+        remat_factor=remat, peak_flops=PEAK_BF16,
+        source=f"chip_smoke.py phase 8 ({_card()})")
+    if CalibrationProfile.from_json(fitted.to_json()) != fitted:
+        _fail("calibrate: the fitted profile does not round-trip JSON")
+
+    ws, x = bench.remat_chain(depth, width, batch, "cuda")
+    g_plain = bench.chain_grads(ws, x, remat=False)
+    g_remat = bench.chain_grads(ws, x, remat=True)
+    if not all(torch.equal(a, b) for a, b in zip(g_plain, g_remat)):
+        _fail("calibrate: the checkpointed chain's gradients differ from "
+              "the plain chain's")
+    del ws, x, g_plain, g_remat
+    torch.cuda.empty_cache()
+    ladder = [check_split_matmul(torch, n, n, n, gen)
+              for n in CALIBRATE_LADDER]
+    chain = {"split_matmul": check_split_matmul(torch, batch, width, width,
+                                                gen),
+             "split_matmul_dgrad": check_matmul_grad(torch, "dgrad", batch,
+                                                     width, width, gen),
+             "split_matmul_wgrad": check_matmul_grad(torch, "wgrad", batch,
+                                                     width, width, gen)}
+    torch.cuda.empty_cache()
+
+    store.clear()
+    try:
+        committed = store.load_and_register(ROOT / CALIBRATE_PROFILE)
+        if store.resolve("h100-sxm") != committed:
+            _fail("calibrate: the store does not resolve h100-sxm to the "
+                  "committed profile")
+    finally:
+        store.clear()
+    knots = [math.log10(2.0 * n ** 3) for n in CALIBRATE_LADDER]
+    if not (committed.peak_flops == PEAK_BF16 and not committed.links
+            and all(abs(a - b) < 1e-9 for a, b in
+                    zip(committed.efficiency.log10_flops, knots))
+            and len(committed.efficiency.log10_flops) == len(knots)):
+        _fail(f"calibrate: the committed profile ({committed.source}) was "
+              f"not fitted at peak {PEAK_BF16:g} over the ladder "
+              f"{CALIBRATE_LADDER} on one card")
+    plans = _replan(committed, serves, trained)
+    model_ratio = (trained["remat_true"]["median_step_ms"]
+                   / trained["median_step_ms"])
+    out = dict(seconds=time.perf_counter() - t0, sweep_s=sweep_s,
+               launches=counts, fitted=fitted.to_dict(),
+               committed=committed.to_dict(),
+               matmul=[dict(n=n, flops=f, seconds=s, rate=f / s,
+                            fraction=f / s / PEAK_BF16)
+                       for n, (f, s) in zip(CALIBRATE_LADDER, mm)],
+               remat_plain_s=t_plain, remat_remat_s=t_remat,
+               remat_factor=remat, model_remat_ratio=model_ratio,
+               ladder=ladder, chain=chain, plans=plans)
+    print(f"calibrate: sweeps {sweep_s:.1f} s; launches {counts}; ladder "
+          "(n: ms a call, fraction of peak, fitted): " + "; ".join(
+              f"{n}: {1e3 * s:.4f}, {f / s / PEAK_BF16:.4g}, {c:.4g}"
+              for n, (f, s), c in zip(CALIBRATE_LADDER, mm, curve.fraction)))
+    print(f"  ladder products against the plain version: " + "; ".join(
+        f"{r['shape'][0]} err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} "
+        f"ms (graph) bound {r['bound_ms']:.4f}" for r in ladder)
+        + f" (tol {KERNEL_TOL}); no rate above {PEAK_BF16:g}")
+    print(f"  remat chain depth {depth} width {width} batch {batch}: plain "
+          f"{1e3 * t_plain:.3f} ms, checkpointed {1e3 * t_remat:.3f} ms: "
+          f"factor {remat:.4f} (committed {committed.remat_factor:.4f}; "
+          f"{TRAIN_ARCH}'s global remat step over remat off's: "
+          f"{model_ratio:.4f}); gradients bit-identical; products "
+          + ", ".join(f"{k} {r['shape']} err {r['max_abs_err']:.3g}"
+                      for k, r in chain.items()))
+    cut = " (measured at a depth cut)" if args.layers else ""
+    for name, r in plans.items():
+        est = ", ".join(f"{k} {r[k]['preset']:.2f} -> {r[k]['fitted']:.2f}"
+                        for k in r if isinstance(r[k], dict)
+                        and "preset" in r[k])
+        meas = ", ".join(f"{k} {v:.2f}" for k, v in r.items()
+                         if k.startswith("measured"))
+        print(f"  replan {name} (preset -> committed profile): decisions "
+              f"that differ {r['differ'] or 'none'}; {est}; card{cut}: "
+              f"{meas}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2295,9 +2535,14 @@ def main(argv=None) -> int:
     report["train"] = trained
     torch.cuda.empty_cache()
     shard = trained["sharded"]
+
+    # 8. calibration and the planner against the card ---------------------
+    calib = calibrate_phase(torch, args, serves, trained)
+    report["calibrate"] = calib
+    torch.cuda.empty_cache()
     paths = dict(serves, train=trained,
                  **{f"train_sharded_{n}": shard[n]["sharded"]
-                    for n in ("zdp", "mixed")})
+                    for n in ("zdp", "mixed")}, calibrate=calib)
 
     # 5. report ---------------------------------------------------------------
     def launches(name):
@@ -2308,6 +2553,9 @@ def main(argv=None) -> int:
                "split_matmul_acc": acc_train,
                "flash_attention": fl + fl_train, "ssd_scan": ssd,
                **bwd}
+    checked["split_matmul"] = checked["split_matmul"] + calib["ladder"]
+    for name, r in calib["chain"].items():
+        checked[name] = checked[name] + [r]
 
     def entry(name, r):
         src, replaces = SOURCES[name]
@@ -2375,6 +2623,12 @@ def main(argv=None) -> int:
               f"GiB (one device {u['peak_mem_gib']:.3f}, phase 6 "
               f"{tr['peak_mem_gib']:.3f}), losses "
               + " ".join(f"{x:.4f}" for x in r["losses"]))
+    print(f"calibrate metrics ({report['card']}): measured fraction of "
+          f"{PEAK_BF16:g} by square size " + ", ".join(
+              f"{n} {r['fraction']:.4g}" for n, r in
+              zip(CALIBRATE_LADDER, calib["matmul"]))
+          + f"; remat factor {calib['remat_factor']:.4f} (model "
+          f"{calib['model_remat_ratio']:.4f})")
     ck = tr["checkpoint"]
     print(f"checkpoint metrics {TRAIN_ARCH} ({ck['n_layers']} layers, "
           f"{report['card']}): {ck['mb_written']:.1f} MB a step, save "

@@ -15,11 +15,11 @@ replacements:
   ``CostEnv``.  ``profile=None`` everywhere keeps the legacy scalar
   path byte-identical; every committed golden is pinned on it.
 
-Nothing here imports jax or any other repro module: the profile is a
+Nothing here imports any other module of the package: the profile is a
 plain value type so `configs`, `core` and `cluster` can consume it
 without import cycles.  The timed benchmarks live in
-:mod:`repro.calibrate.bench`; the fitting math in
-:mod:`repro.calibrate.fit`.
+:mod:`repro_torch.calibrate.bench`; the fitting math in
+:mod:`repro_torch.calibrate.fit`.
 """
 from __future__ import annotations
 

@@ -198,8 +198,8 @@ class ClusterSpec:
 
         ``links`` is an iterable of objects with ``.level``,
         ``.alpha`` and ``.bandwidth`` attributes
-        (`repro.calibrate.profile.LinkCalibration`; duck-typed so this
-        module stays import-free of the calibrate package).  Links are
+        (`repro_torch.calibrate.profile.LinkCalibration`; duck-typed so
+        this module stays import-free of the calibrate package).  Links are
         matched to levels by name; if *no* link name matches any level
         the links are assigned positionally innermost-first instead
         (a profile fitted on a flat "data"/"pod" mesh still prices a

@@ -306,7 +306,7 @@ class DevicePreset:
     is what `--overlap auto` opts into (a bare `preset(name)` still
     prices serially — committed goldens depend on it).  Measured
     overrides do NOT live here: a fitted CalibrationProfile layers on
-    top via `repro.calibrate.store`, the single override point."""
+    top via `repro_torch.calibrate.store`, the single override point."""
 
     info: "DeviceInfo"
     achievable_overlap: float

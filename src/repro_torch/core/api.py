@@ -66,10 +66,12 @@ def osdp(model: ModelConfig,
     flat (device, mesh) model applies (mesh defaults to
     SINGLE_POD_MESH).
 
-    `profile` (a `repro.calibrate.CalibrationProfile`, from
-    `repro calibrate`) prices with measured constants — efficiency
-    curve, fitted link alpha/bandwidth, fitted recompute factor;
-    None keeps the scalar datasheet path byte-identical.
+    `profile` (a `repro_torch.calibrate.CalibrationProfile`, from
+    `python -m repro_torch calibrate`; the H100's fitted profile is
+    `repro_torch/calibrate/profiles/h100-sxm.json`, read with
+    `CalibrationProfile.load`) prices with measured constants —
+    efficiency curve, fitted link alpha/bandwidth, fitted recompute
+    factor; None keeps the scalar datasheet path byte-identical.
     """
     if mesh is None:
         mesh = (cluster.mesh_config() if cluster is not None

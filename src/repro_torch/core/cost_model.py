@@ -141,7 +141,7 @@ class CostEnv:
     # training = fwd + bwd (2x fwd) compute; False for serving estimates
     train: bool = True
     cluster: Optional[ClusterSpec] = None
-    # measured constants (repro calibrate): an efficiency curve in
+    # measured constants (repro_torch calibrate): an efficiency curve in
     # place of the scalar mxu_efficiency, fitted per-level alpha/bw in
     # place of the datasheet link constants, a fitted recompute factor
     # in place of the literal 1.30.  None keeps the legacy scalar path

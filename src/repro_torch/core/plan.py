@@ -76,7 +76,7 @@ def make_plan(run: RunConfig,
     `cluster` (a `repro.cluster.ClusterSpec`) prices collectives
     against the real bandwidth hierarchy; without one the flat
     (device, mesh) depth-2 adapter applies.  `profile` (a
-    `repro.calibrate.CalibrationProfile`) prices with measured
+    `repro_torch.calibrate.CalibrationProfile`) prices with measured
     constants; None keeps the scalar path byte-identical."""
     device = device or (cluster.device if cluster is not None
                         else DeviceInfo())
