@@ -21,7 +21,9 @@ the final line is not printed):
    a CUDA graph of 20 calls, and the eager time with the host's launch
    cost, of the kernel's wrapper and of the model path's differentiable
    entry `ops.matmul` / `ops.attention` under no_grad); then the kernels' other options (f32, ragged shapes, each
-   matmul design at its edge cases, windows, an initial state, hymba-1.5b's
+   matmul design at its edge cases, the persistent design's ragged last
+   row tile, N against bn, fewer tiles than SMs, tiles not a multiple of
+   the blocks and split-K, windows, an initial state, hymba-1.5b's
    SSD shapes, the scan's chunk counts and lengths...); for `ssd_scan`
    also the device time of each of its three passes, a bit-identical
    repeat of one call, and no register spill in its kernels;
@@ -45,7 +47,11 @@ the final line is not printed):
    at the tied head's CE chunk (8 x 512 rows against the 152,064-row
    embedding, whose forward takes the "nt" layout, checked too), each
    backward against the plain version summed in the plan's split-K
-   order; `flash_attention` forward (output and logsumexp) and backward
+   order; the accumulating form and dgrad take the persistent design
+   (each row prints its plan: blocks, tile-order group, bn, ring stages,
+   shared memory and the modelled memory bytes of both operands; the
+   accumulating form's library call is `torch.addmm(acc, x, w,
+   out_dtype=torch.float32)`), and its kernels show no register spill; `flash_attention` forward (output and logsumexp) and backward
    at (8, 4096, 16, 1, 64), causal; each timed as in phase 2 beside its
    bound and the library call (`torch.matmul`; SDPA's flash forward and
    its backward op, both by CUDA-graph replay); then the backward's
@@ -73,7 +79,10 @@ the final line is not printed):
    loss, grad norm, host ms (synchronised), tokens/s; MFU from the
    model FLOPs 6 N tokens + 12 L B S^2 d_attn / 2; peak memory; one more
    step under the profiler, device ms by bucket (split_matmul forward,
-   dgrad, wgrad, flash forward and backward, AdamW, plain torch); then
+   its accumulating form, dgrad, wgrad, flash forward and backward,
+   AdamW, plain torch), every accumulating and dgrad launch of the steps
+   through the persistent design (launches counted by role and design);
+   then
    3 steps of the same model under global remat (the planner's default
    checkpointing: every layer's forward again in the backward), with
    their launch counts, step time and peak; 3 steps under the plan the
@@ -350,19 +359,29 @@ def check_split_matmul(torch, M, K, N, gen):
 def check_split_matmul_acc(torch, M, K, N, gen):
     """The accumulating form y = acc + x @ w (fp32 acc and y) at one
     shape, against its plain version on the same inputs, repeated
-    bit-identically, timed beside its bound and `torch.matmul` of the
-    same product (bf16 out: no single PyTorch call adds the product into
-    an fp32 tensor)."""
+    bit-identically, timed beside its bound and the library call that
+    computes the same function, `torch.addmm(acc, x, w,
+    out_dtype=torch.float32)` (where this torch refuses it, `torch.matmul`
+    of the same product with bf16 out stands in, and the row says so)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import split_matmul as sm
     x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
          ).to(torch.bfloat16)
     acc = torch.randn(M, N, generator=gen, device="cuda")
-    plan = sm.plan_for(x, w, 512)
+    plan = sm.plan_for(x, w, 512, role="acc")
     if plan.variant == "general":
         _fail(f"split_matmul acc {M}x{K}x{N}: a path shape took the general "
               f"kernel ({plan.reason})")
+    library, lib_call = "torch.addmm(acc, x, w, out_dtype=torch.float32)", \
+        lambda: torch.addmm(acc, x, w, out_dtype=torch.float32)
+    try:
+        lib_call()
+    except (TypeError, RuntimeError) as e:
+        print(f"  split_matmul acc {M}x{K}x{N}: {library} refused ({e}); "
+              f"torch.matmul with bf16 out stands in")
+        library, lib_call = ("torch.matmul (bf16 out, a stand-in)",
+                             lambda: torch.matmul(x, w))
     y = sm.split_matmul(x, w, acc=acc)
     torch.cuda.synchronize()
     want = ref.split_matmul_ref(x, w, bk=512, acc=acc)
@@ -383,12 +402,33 @@ def check_split_matmul_acc(torch, M, K, N, gen):
                 eager_ms=_time_ms(torch, kern, [()]),
                 plain_ms=_time_ms(torch, lambda: ref.split_matmul_ref(
                     x, w, bk=512, acc=acc), [()], iters=3),
-                library_ms=_graph_ms(torch, lambda: torch.matmul(x, w),
-                                     [()]),
+                library_ms=_graph_ms(torch, lib_call, [()]),
+                library=library,
                 bf16_out_ms=_graph_ms(torch, lambda: sm.split_matmul(x, w),
                                       [()]),
-                variant=plan.variant, bn=plan.bn, splits=plan.splits,
-                blocks=plan.blocks, bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **_plan_fields(plan))
+
+
+def _plan_fields(plan) -> dict:
+    """The launch plan's fields a report row carries: the design, its
+    tile and split, and for the persistent design its blocks, tile-order
+    group, ring stages, shared memory and modelled operand bytes."""
+    return dict(variant=plan.variant, bn=plan.bn, splits=plan.splits,
+                blocks=plan.blocks, group=plan.group, stages=plan.stages,
+                smem=plan.smem, row_bytes=plan.row_bytes,
+                col_bytes=plan.col_bytes)
+
+
+def _plan_text(r) -> str:
+    """A report row's plan as the phase prints it."""
+    text = (f" [{r['variant']} bn {r['bn']} x {r['splits']} splits, "
+            f"{r['blocks']} blocks")
+    if r.get("variant") == "persistent":
+        text += (f", group {r['group']}, {r['stages']} stages, "
+                 f"{r['smem']} B shared, modelled HBM reads A "
+                 f"{r['row_bytes'] / 1e6:.1f} MB, B "
+                 f"{r['col_bytes'] / 1e6:.1f} MB")
+    return text + "]"
 
 
 def check_flash(torch, S, gen, KV=8, G=3, hd=128, B=1):
@@ -680,14 +720,25 @@ MATMUL_DESIGN_CASES = (
 
 
 # the accumulating form (fp32 y = acc + x @ w) in each design's epilogue
-# and in the split-K reduce: (M, K, N, dtype, design, what)
+# and in the split-K reduce: (M, K, N, bk, dtype, design, what)
 ACC_CASES = (
-    (8, 704, 1024, "bfloat16", "stream", "acc, decode rows, split-K"),
-    (1, 3072, 8192, "bfloat16", "stream", "acc, M = 1, 6 splits"),
-    (256, 8192, 256, "bfloat16", "wgmma", "acc, split-K reduce"),
-    (129, 704, 72, "bfloat16", "wgmma", "acc, ragged M and N"),
-    (100, 36, 20, "bfloat16", "general", "acc, N not a multiple of 8"),
-    (300, 100, 56, "float32", "general", "acc, float32"),
+    (8, 704, 1024, 512, "bfloat16", "stream", "acc, decode rows, split-K"),
+    (1, 3072, 8192, 512, "bfloat16", "stream", "acc, M = 1, 6 splits"),
+    (256, 8192, 256, 512, "bfloat16", "persistent",
+     "acc, split-K reduce (16 splits)"),
+    (129, 704, 72, 512, "bfloat16", "persistent", "acc, ragged M and N"),
+    (32845, 704, 1024, 512, "bfloat16", "persistent",
+     "acc, a ragged last row tile at the path's width"),
+    (300, 704, 1000, 512, "bfloat16", "persistent",
+     "acc, N not a multiple of bn, fewer tiles than SMs"),
+    (4000, 704, 2000, 512, "bfloat16", "persistent",
+     "acc, tiles not a multiple of the blocks"),
+    (200, 2600, 520, 512, "bfloat16", "persistent",
+     "acc, split-K with a short last slice"),
+    (300, 1000, 256, 100, "bfloat16", "persistent",
+     "acc, bk 100: slices cut inside a k-step (one slice of all of K)"),
+    (100, 36, 20, 512, "bfloat16", "general", "acc, N not a multiple of 8"),
+    (300, 100, 56, 512, "float32", "general", "acc, float32"),
 )
 
 
@@ -711,19 +762,19 @@ def check_matmul_designs(torch, gen) -> int:
             _fail(f"split_matmul {M}x{K}x{N} bk={bk} ({what}, {design}, "
                   f"{plan.splits} splits): max error "
                   f"{(y - y_ref).abs().max().item()}")
-    for M, K, N, dtype, design, what in ACC_CASES:
+    for M, K, N, bk, dtype, design, what in ACC_CASES:
         dt = getattr(torch, dtype)
         x = torch.randn(M, K, generator=gen, device="cuda").to(dt)
         w = (torch.randn(K, N, generator=gen, device="cuda")
              / math.sqrt(K)).to(dt)
         acc = torch.randn(M, N, generator=gen, device="cuda")
-        plan = sm.plan_for(x, w, 512)
-        y = sm.split_matmul(x, w, acc=acc)
-        y_ref = ref.split_matmul_ref(x, w, bk=512, acc=acc)
+        plan = sm.plan_for(x, w, bk, role="acc")
+        y = sm.split_matmul(x, w, bk=bk, acc=acc)
+        y_ref = ref.split_matmul_ref(x, w, bk=bk, acc=acc)
         if plan.variant != design or y.dtype != torch.float32 or \
                 not torch.allclose(y, y_ref, atol=KERNEL_TOL,
                                    rtol=KERNEL_TOL) or \
-                not torch.equal(y, sm.split_matmul(x, w, acc=acc)):
+                not torch.equal(y, sm.split_matmul(x, w, bk=bk, acc=acc)):
             _fail(f"split_matmul {M}x{K}x{N} {dtype} ({what}): took "
                   f"{plan.variant} ({design} expected, {plan.splits} "
                   f"splits), {y.dtype}, max error "
@@ -1058,7 +1109,7 @@ def check_matmul_grad(torch, role, M, K, N, gen, transpose_w=False):
     elif role == "dgrad":
         dy = r(M, N)
         layout = "nn" if transpose_w else "nt"
-        plan = sm.plan_for(dy, w, sm.BWD_KSLICE, layout)
+        plan = sm.plan_for(dy, w, sm.BWD_KSLICE, layout, role="dgrad")
         got = sm.split_matmul_dgrad(dy, w, transpose_w=transpose_w)
         b = w if transpose_w else w.t()
         want = ref.split_matmul_splitk_ref(dy, b, plan.kslice,
@@ -1097,8 +1148,21 @@ def check_matmul_grad(torch, role, M, K, N, gen, transpose_w=False):
                 eager_ms=_time_ms(torch, lambda: kern(), [()]),
                 plain_ms=_time_ms(torch, lambda: plain(), [()], iters=3),
                 library_ms=_graph_ms(torch, lambda: lib(), [()]),
-                variant=plan.variant, bn=plan.bn, splits=plan.splits,
-                blocks=plan.blocks, bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **_plan_fields(plan))
+
+
+def check_persistent_spills() -> list:
+    """`-Xptxas -v`'s line for each of `split_matmul`'s persistent
+    kernels; fails on a register spill (or when ptxas reported none)."""
+    import re
+    from repro_torch.kernels import _lib
+    ptx = [ln for ln in _ptxas(_lib.build_log) if "persistent" in ln]
+    spills = [ln for ln in ptx if any(int(v) for v in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", ln))]
+    if not ptx or spills:
+        _fail(f"split_matmul persistent kernels spill registers (or ptxas "
+              f"reported none): {spills or ptx}")
+    return ptx
 
 
 def _flash_bwd_inputs(torch, gen, B, S, T, KV, G, hd, dtype, kw):
@@ -1238,15 +1302,74 @@ FLASH_BWD_CASES = (
      "G 3, hd 128, non-causal, S 37 T 50"),
 )
 MATMUL_GRAD_CASES = (
-    # (role, M, K, N, transpose_w, what)
-    ("dgrad", 300, 136, 200, False, "ragged M, K 136, N 200"),
-    ("wgrad", 300, 136, 200, False, "ragged M (the contracted rows)"),
-    ("dgrad", 8, 1024, 1024, False, "M 8: 128-row tiles at 8 rows"),
-    ("dgrad", 5, 37, 19, False, "odd sizes: the strided kernel"),
-    ("wgrad", 5, 37, 19, False, "odd sizes: the strided kernel"),
-    ("dgrad", 200, 64, 264, True, "a transposed weight"),
-    ("wgrad", 200, 64, 264, True, "a transposed weight"),
+    # (role, M, K, N, transpose_w, design of the bf16 call, what); dgrad
+    # is dy (M, N) . w^T -> (M, K), wgrad x^T (K, M) . dy -> (K, N)
+    ("dgrad", 300, 136, 200, False, "general",
+     "ragged M (300 not a multiple of 8), K 136, N 200"),
+    ("dgrad", 296, 136, 200, False, "persistent", "ragged M, K 136, N 200"),
+    ("wgrad", 300, 136, 200, False, "general",
+     "ragged M (the contracted rows, 300 not a multiple of 8)"),
+    ("dgrad", 8, 1024, 1024, False, "persistent",
+     "M 8: 128-row tiles at 8 rows, split-K"),
+    ("dgrad", 5, 37, 19, False, "general", "odd sizes: the strided kernel"),
+    ("wgrad", 5, 37, 19, False, "general", "odd sizes: the strided kernel"),
+    ("dgrad", 200, 64, 264, True, "persistent", "a transposed weight"),
+    ("wgrad", 200, 64, 264, True, "wgmma", "a transposed weight"),
+    ("dgrad", 2000, 1000, 1024, False, "persistent",
+     "a ragged last row tile, K 1000 not a multiple of bn"),
+    ("dgrad", 33000, 704, 1024, False, "persistent",
+     "a ragged last row tile at the path's width"),
+    ("dgrad", 200, 520, 4096, False, "persistent",
+     "split-K, fewer tiles than SMs"),
+    ("dgrad", 4000, 2000, 1024, False, "persistent",
+     "tiles not a multiple of the blocks"),
+    ("dgrad", 296, 1024, 8192, True, "persistent",
+     "the tied head's layout (nn), split-K"),
+    ("dgrad", 8192, 1152, 192, False, "persistent",
+     "bn 192 (3 staging chunks a tile), 3 k-steps, about 3 tiles a block"),
 )
+
+
+# (M, N, K) of out = A(M, K) . B at which the persistent kernel is run at
+# each tile width through its C entry: one k-step a tile and 768 tiles of
+# bn 192 on 132 blocks, so a staging buffer rewritten before its store
+# has read it shows (the plan takes bn 192 at no such K)
+PERSISTENT_SWEEP = (32768, 576, 64)
+
+
+def check_persistent_widths(torch, gen) -> tuple:
+    """The persistent kernel at each bn it is built for, in both
+    layouts, at PERSISTENT_SWEEP, against the fp32 product, each call
+    repeated bit-identically; returns the bns."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import split_matmul as sm
+    M, N, K = PERSISTENT_SWEEP
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles_m = math.ceil(M / sm.WGMMA_BM)
+    for layout in ("nt", "nn"):
+        a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        b = torch.randn(*((N, K) if layout == "nt" else (K, N)),
+                        generator=gen, device="cuda").bfloat16()
+        want = a.float() @ (b.float().t() if layout == "nt" else b.float())
+        for bn in sm.PERSISTENT_BNS:
+            tiles_n = math.ceil(N / bn)
+            blocks = min(n_sm, tiles_m * tiles_n)
+            group = max(1, min(tiles_m, blocks // tiles_n))
+
+            def call():
+                y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+                _lib.check(_lib.lib().split_matmul_persistent_bf16(
+                    a.data_ptr(), b.data_ptr(), y.data_ptr(), None, None,
+                    sm.LAYOUTS[layout], M, N, K, K, bn, 1, 1, blocks, group,
+                    _lib.stream_of(a)), "split_matmul_persistent_bf16")
+                return y
+            what = (f"persistent kernel {layout} bn {bn} at {M}x{N}x{K} "
+                    f"({blocks} blocks, group {group})")
+            got = call()
+            _grad_err(torch, got, want, what)
+            if not torch.equal(got, call()):
+                _fail(f"{what}: two calls on the same inputs differ")
+    return sm.PERSISTENT_BNS
 
 
 def check_backward_options(torch, gen) -> int:
@@ -1260,7 +1383,7 @@ def check_backward_options(torch, gen) -> int:
         _flash_bwd_case(torch, gen, B, S, T, KV, G, hd,
                         dict(causal=causal, window=window, q_offset=q_off),
                         getattr(torch, dt), KERNEL_TOL)
-    for role, M, K, N, tw, what in MATMUL_GRAD_CASES:
+    for role, M, K, N, tw, design, what in MATMUL_GRAD_CASES:
         for dtype, tol in ((torch.bfloat16, KERNEL_TOL), (torch.float32,
                                                           1e-4)):
             r = lambda *s: torch.randn(*s, generator=gen,
@@ -1268,14 +1391,23 @@ def check_backward_options(torch, gen) -> int:
             w = r(*((N, K) if tw else (K, N)))
             if role == "dgrad":
                 dy = r(M, N)
-                got = sm.split_matmul_dgrad(dy, w, transpose_w=tw)
+                plan = sm.plan_for(dy, w, sm.BWD_KSLICE, "nn" if tw else "nt",
+                                   role="dgrad")
+                call = lambda: sm.split_matmul_dgrad(dy, w, transpose_w=tw)
                 want = ref.split_matmul_dgrad_ref(dy, w, transpose_w=tw)
             else:
                 x, dy = r(M, K), r(M, N)
-                got = sm.split_matmul_wgrad(x, dy, transpose_w=tw)
+                a, b = (dy, x) if tw else (x, dy)
+                plan = sm.plan_for(a, b, sm.BWD_KSLICE, "tn", role="wgrad")
+                call = lambda: sm.split_matmul_wgrad(x, dy, transpose_w=tw)
                 want = ref.split_matmul_wgrad_ref(x, dy, transpose_w=tw)
-            _grad_err(torch, got, want, f"split_matmul_{role} {what} "
-                      f"{dtype}", tol)
+            got = call()
+            what_ = f"split_matmul_{role} {what} {dtype}"
+            if dtype == torch.bfloat16 and plan.variant != design:
+                _fail(f"{what_}: took {plan.variant}, not {design}")
+            _grad_err(torch, got, want, what_, tol)
+            if not torch.equal(got, call()):
+                _fail(f"{what_}: two calls on the same inputs differ")
     return len(FLASH_BWD_CASES) + 2 * len(MATMUL_GRAD_CASES)
 
 
@@ -1286,7 +1418,7 @@ def annotated_kernels():
     """Name each kernel wrapper's calls with a profiler range, so a
     profiled step's device time splits by role: the head's dgrad runs
     the forward's layout, so kernel names alone cannot tell it from a
-    forward product."""
+    forward product; `split_matmul(..., acc=)` is `split_matmul_acc`."""
     from torch.profiler import record_function
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import split_matmul as sm
@@ -1297,7 +1429,9 @@ def annotated_kernels():
         saved.append((mod, attr, fn))
 
         def inner(*a, **k):
-            with record_function(name):
+            # the accumulating form is a bucket of its own
+            with record_function(name + ("_acc" if k.get("acc") is not None
+                                         else "")):
                 return fn(*a, **k)
         setattr(mod, attr, inner)
     for mod, attr, name in ((sm, "split_matmul", "bucket:split_matmul"),
@@ -1348,15 +1482,17 @@ def _profiled(torch, fn):
     return kernels, spans, wall_ms, sorted(others, reverse=True)[:10]
 
 
-def profile_step(torch, grads_fn, update_fn) -> dict:
+def profile_step(torch, grads_fn, update_fn, acc: bool) -> dict:
     """Device ms of one training step by bucket: the kernels by role
-    (from their wrappers' ranges), plain torch (every other kernel of
-    the forward and backward), and the AdamW update (all the kernels of
-    `update_fn`, profiled on its own)."""
+    (from their wrappers' ranges; `acc`: the step runs the accumulating
+    form), plain torch (every other kernel of the forward and backward),
+    and the AdamW update (all the kernels of `update_fn`, profiled on its
+    own)."""
     k1, spans, w1, others = _profiled(torch, grads_fn)
     k2, _, w2, _ = _profiled(torch, update_fn)
     roles = ("split_matmul", "split_matmul_dgrad", "split_matmul_wgrad",
-             "flash_attention", "flash_attention_bwd")
+             "flash_attention", "flash_attention_bwd") + (
+                 ("split_matmul_acc",) if acc else ())
     if not k1 or not all(spans.get(r, 0.0) > 0 for r in roles):
         _fail(f"profiler: no device time for some kernel role: {spans}")
     out = {r: spans[r] for r in roles}
@@ -1577,9 +1713,17 @@ def train_phase(torch, args) -> dict:
     res.params = None       # the runs below start from `params`
     counts = ops.launch_counts()
     layouts = ops.split_matmul_layout_counts()
+    variants = ops.split_matmul_variant_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(math.isfinite(x) for x in res.losses):
         _fail(f"train: non-finite loss {res.losses}")
+    # the accumulating form (rows > 64 here) and dgrad: the persistent
+    # design only
+    off = {k: n for k, n in variants.items() if k.split(":")[0] in
+           ("acc", "dgrad") and k.split(":")[1] != "persistent"}
+    if off:
+        _fail(f"train: acc or dgrad launches off the persistent design: "
+              f"{off} (all by design: {variants})")
     want, want_layouts = _want_train_launches(built, TRAIN_STEPS, S)
     for name, n in want.items():
         if counts[name] != n:
@@ -1603,7 +1747,8 @@ def train_phase(torch, args) -> dict:
                model_flops_per_step=flops,
                mfu=flops / (PEAK_BF16 * step_ms / 1e3),
                peak_mem_gib=peak, launches=counts,
-               split_matmul_layouts=layouts, grad_check=check,
+               split_matmul_layouts=layouts, split_matmul_variants=variants,
+               grad_check=check,
                plan_est_step_ms=plan.cost.time * 1e3,
                plan_est_mem_gib=plan.cost.memory / 2**30)
     for i, (l, g, ms) in enumerate(zip(res.losses, res.grad_norms,
@@ -1617,7 +1762,8 @@ def train_phase(torch, args) -> dict:
     got = {}
     out["profile_step"] = prof = profile_step(
         torch, lambda: got.update(g=loss_and_grads(model, pp, batch)[2]),
-        lambda: apply_update(AdamWConfig(), pp, got["g"], opt, 1.0))
+        lambda: apply_update(AdamWConfig(), pp, got["g"], opt, 1.0),
+        acc=want["split_matmul_acc"] > 0)
     del got, pp, opt
     print("  profiled step (device ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in prof.items() if k != "top_plain_ops"))
@@ -1627,7 +1773,7 @@ def train_phase(torch, args) -> dict:
     print(f"train {TRAIN_ARCH}: {res.steps} steps, median step {step_ms:.1f} "
           f"ms, {out['tokens_per_s']:.0f} tok/s, MFU {out['mfu']:.3f}, peak "
           f"{peak:.2f} GiB; launches {counts}; split_matmul by layout "
-          f"{layouts}")
+          f"{layouts}, by role and design {variants}")
     out["w13_regroup"] = w13_regroup(torch, cfg, split)
     print(f"  w13 regrouped into {split} chunks: "
           f"{out['w13_regroup']['fwd_ms']:.4f} ms a layer, its gradient "
@@ -2488,10 +2634,9 @@ def main(argv=None) -> int:
            "flash_attention": fl_train}
     for name, rows_ in list(fwd.items()) + list(bwd.items()):
         for r in rows_ + ([head_fwd] if name == "split_matmul_wgrad" else []):
-            lib = f"{r['library_ms']:.4f} ms"
-            design = (f" [{r['variant']} bn {r['bn']} x {r['splits']} "
-                      f"splits, {r['blocks']} blocks]" if "variant" in r
-                      else "")
+            lib = f"{r['library_ms']:.4f} ms" + (
+                f" ({r['library']})" if "library" in r else "")
+            design = _plan_text(r) if "variant" in r else ""
             label = (name if r is not head_fwd
                      else "split_matmul (tied head, nt)")
             if r.get("acc"):
@@ -2501,6 +2646,10 @@ def main(argv=None) -> int:
                   f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
                   f"library {lib}, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
+    persistent_ptx = check_persistent_spills()
+    print("  split_matmul persistent kernels: no spills ("
+          + "; ".join(persistent_ptx) + ")")
+    report["split_matmul_persistent_ptxas"] = persistent_ptx
     bwd_design = check_flash_bwd_design(
         torch, gen, TRAIN_BATCH, 4096, kv_heads, group, qw.resolved_head_dim)
     print(f"  flash_attention_bwd: no spills ("
@@ -2521,6 +2670,11 @@ def main(argv=None) -> int:
           + "; ".join(c[-1] for c in MATMUL_GRAD_CASES) + ", bf16 and f32)"
           " agree with the plain versions; every repeated backward "
           "bit-identical")
+    bns = check_persistent_widths(torch, gen)
+    print(f"  persistent kernel: {2 * len(bns)} calls (bn "
+          f"{', '.join(map(str, bns))}; nt and nn) at "
+          f"{PERSISTENT_SWEEP}, one k-step a tile, agree with the fp32 "
+          f"product and repeat bit-identically")
     torch.cuda.empty_cache()
 
     # 3-4. serve each model, then its whole-model logits ----------------------

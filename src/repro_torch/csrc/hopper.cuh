@@ -89,10 +89,14 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
+// The arrive and wait below also take the barrier's shared-memory
+// address (a 32-bit register instead of a 64-bit generic pointer).
+__device__ __forceinline__ void mbar_arrive(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(addr)
                : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  mbar_arrive(smem_u32(bar));
 }
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {
@@ -105,8 +109,7 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
 // Waits until the phase of parity `parity` has completed.  A wait that
 // lasts over about 10 s of SM clock traps, so a lost arrival fails the
 // launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
+__device__ __forceinline__ void mbar_wait(uint32_t addr, int parity) {
   const long long t0 = clock64();
   uint32_t done = 0;
   while (true) {
@@ -123,6 +126,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
     if (clock64() - t0 > 20000000000LL) __trap();
   }
 }
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  mbar_wait(smem_u32(bar), parity);
+}
 
 // --- TMA -----------------------------------------------------------------------
 
@@ -137,7 +143,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap,
       : "memory");
 }
 
-// 4-D and 5-D tile loads (c0 innermost), as tma_load_2d.
+// 3-D, 4-D and 5-D tile loads (c0 innermost), as tma_load_2d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -192,8 +208,45 @@ __device__ __forceinline__ void bulk_reduce_add_f32(void* dst,
       "r"(smem_u32(src)), "r"(bytes)
       : "memory");
 }
+// A 3-D tile store from shared memory at address `src` (in the layout
+// the tensor map's swizzle gives) to device memory, tracked by bulk
+// groups; elements outside the tensor are not written.  c0 innermost,
+// in elements.
+__device__ __forceinline__ void tma_store_3d(const void* tmap, uint32_t src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared-memory stores and loads by 32-bit address.
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b)
+               : "memory");
+}
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's bulk groups still read their
+// shared-memory source (their writes to device memory may still be on
+// the way)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // waits until this thread's bulk groups have completed (their writes done)
 __device__ __forceinline__ void bulk_wait_all() {

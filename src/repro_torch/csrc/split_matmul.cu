@@ -7,8 +7,9 @@
 // (body `_kernel`), where K is a sequential grid axis carried in a VMEM
 // accumulator, so one (bk, bn) weight slice is resident at a time.  CUDA
 // blocks run in no order, so here a block walks its K range itself.  The
-// wrapper (kernels/split_matmul.py::plan_launch) picks one of three
-// designs by shape; every choice is explicit in the plan it returns.
+// wrapper (kernels/split_matmul.py::plan_launch) picks one of four
+// designs by shape and role; every choice is explicit in the plan it
+// returns.
 //
 // (a) "stream", decode rows (M <= 64).  Every product is a stream of the
 //     weight: K*N*2 bytes against 2*M*K*N operations, 8 FLOP a byte at
@@ -46,8 +47,12 @@
 //     from memory once.  All slices of a block's K range add into the
 //     same fp32 registers; split-K (as in (a)) where the tiles alone
 //     leave SMs idle.
+// (d) "persistent", the accumulating form and dgrad at prefill rows: (b)'s
+//     roles and tiles in one block a SM that walks output tiles in a
+//     grouped raster, its epilogue through shared memory and TMA stores
+//     (below, before the split-K reduction).
 // (c) "general", the first version (64x64 tiles, WMMA, no pipeline),
-//     kept for what (a) and (b) cannot take: K or N not a multiple of 8
+//     kept for what (a), (b) and (d) cannot take: K or N not a multiple of 8
 //     (TMA and 16-byte copies need 16-byte row strides) or a base pointer
 //     not 16-byte aligned.  float32 inputs take a CUDA-core fp32 kernel
 //     (no TF32).
@@ -68,10 +73,12 @@
 // Accumulating form, y_f32 = acc + x @ w (forward layout only): the TPU
 // kernel's fp32 K-slice accumulator carried across calls, which is §3.3's
 // slice-and-sum as `core/operator_split.py` runs it (a chunked FFN adds each
-// chunk's h_j @ w2_j into one fp32 sum and casts once at the end).  Every
-// design takes it in its epilogue: where it would cast its fp32 sum to bf16
-// it reads the fp32 tile of `acc` and writes acc + sum as fp32 instead; the
-// split-K reduce adds `acc` to the sum of its partials the same way.  The
+// chunk's h_j @ w2_j into one fp32 sum and casts once at the end).  (a),
+// (c) and (d) take it in their epilogues ((b) never does: the wrapper
+// sends every accumulating call at prefill rows to (d)): where they would
+// cast the fp32 sum to bf16 they read the fp32 tile of `acc` and write
+// acc + sum as fp32 instead; the split-K reduce adds `acc` to the sum of
+// its partials the same way.  The
 // products are unchanged, so it costs the fp32 tile read and the wider
 // write: 8 bytes an output element more than a bf16 product.
 //
@@ -475,8 +482,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
                                         uint64_t* empty, const Steps& st,
                                         int tid, int m0, int n0, int split,
                                         void* y, float* __restrict__ ws,
-                                        const float* c_in, int M, int N,
-                                        int K) {
+                                        int M, int N, int K) {
   using namespace hopper;
   constexpr int STAGE_BYTES = Wg<BN>::STAGE_BYTES;
   constexpr int STAGES = Wg<BN>::STAGES;
@@ -558,10 +564,6 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
       if (ws) {
         *reinterpret_cast<float2*>(ws + (size_t)split * M * N + o) =
             make_float2(v0, v1);
-      } else if (c_in) {              // accumulating form: fp32 out
-        const float2 a = *reinterpret_cast<const float2*>(c_in + o);
-        *reinterpret_cast<float2*>(reinterpret_cast<float*>(y) + o) =
-            make_float2(a.x + v0, a.y + v1);
       } else {
         *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(y) + o) =
             pack_bf16(v0, v1);
@@ -574,8 +576,8 @@ template <int BN, int L>
 __global__ void __launch_bounds__(384, 1)
 split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                           const __grid_constant__ CUtensorMap tw,
-                          void* y, float* __restrict__ ws, const float* c_in,
-                          int M, int N, int K, int kslice, int sps) {
+                          void* y, float* __restrict__ ws, int M, int N,
+                          int K, int kslice, int sps) {
   using namespace hopper;
   constexpr int STAGE_BYTES = Wg<BN>::STAGE_BYTES;
   constexpr int STAGES = Wg<BN>::STAGES;
@@ -638,9 +640,318 @@ split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     }
   } else {
     setmaxnreg_inc<232>();
-    consume<BN, L>(smem, full, empty, st, tid, m0, n0, split, y, ws, c_in, M,
-                   N, K);
+    consume<BN, L>(smem, full, empty, st, tid, m0, n0, split, y, ws, M, N, K);
   }
+}
+
+// --- (d) "persistent": the accumulating form and dgrad at prefill rows -----
+//
+// At 32,768 rows the row operand is the large one (dy 64 MiB, a w2 chunk's
+// hidden 44 MiB, both above the 50 MB L2) and the epilogue is heavy (the
+// accumulating form reads and writes 8 bytes an output element against
+// K = 704).  Design (b) pays for both: its grid runs row tiles fastest,
+// so x is streamed once per column tile, and each block writes its tile
+// from registers, then exits with its ring empty.  On the card that
+// epilogue took 0.25 of 0.34 ms at the accumulating w2 chunk and 0.056
+// of 0.167 ms at the attention dgrad (tools/split_matmul_phases.py).
+//
+// Here one block a SM (the grid is the plan's `blocks`, the device's SM
+// count or fewer) walks output tiles t = blockIdx.x, + gridDim.x, ... in
+// a grouped raster (`TileOrder`, the wrapper's `tile_order` in Python):
+// `group` row tiles at a time, each group's column tiles walked with its
+// row tiles fastest, so the blocks that share a row tile run together and
+// read it from memory about once, and the small weight stays in L2.  The
+// roles are (b)'s: one TMA producer thread, two consumer warpgroups of
+// 64 rows each with wgmma, registers moved by setmaxnreg.  The producer's
+// ring runs across tile boundaries, so the next tile's loads fill while
+// the consumers finish the last.  The consumers write their sums 64
+// columns at a time into two staging buffers in shared memory (128-byte
+// swizzled boxes of 64 rows), and one thread of each warpgroup sends each
+// chunk out with a TMA store that drains while the next chunk is written
+// and the next tile's products run; the buffers alternate chunk by chunk
+// across tiles, and a buffer is rewritten once its store two chunks back
+// has left it.  Two 64-column buffers instead of a whole output tile
+// leave room for a 4th ring stage at bn 256.  In the
+// accumulating form the staging area holds the tile of `acc` instead:
+// the producer TMA-loads it during the mainloop, as soon as the
+// consumers have read the last one (barrier `acc_empty`), and the
+// consumers add their sums to it and store y from registers, so no acc
+// load waits for a store to drain (an output tile beside the acc tile
+// left 3 stages at bn 128, and was slower on the card).  Split-K writes
+// fp32 partials (a 3-D store into the (splits, M, N) workspace) summed
+// by the reduce kernel below.
+// Each output element is summed over K in (b)'s order, so repeats are
+// bit-identical; there are no atomics.  K slices are whole k-steps (a
+// multiple of 64, as "nt" and "tn" always cut them) or one slice is all
+// of K, so no step is zeroed in shared memory: the wrapper plans a slice
+// that is neither as one slice of all of K.
+
+constexpr int SMEM_LIMIT = 232448;     // dynamic shared memory a block may use
+constexpr int C_BOX = 64 * 128;        // one box of the output tile: 64 rows
+                                       // of 128 bytes
+
+enum Out { OUT_BF16 = 0, OUT_F32 = 1, OUT_ACC = 2 };
+
+// Shared memory: the ring, the staging buffers (in the accumulating form
+// the acc tile), the barriers (the wrapper's `persistent_smem` in Python
+// computes the same stages and bytes).
+template <int BN, int OUT>
+struct Ps {
+  static constexpr int STAGE_BYTES = A_BYTES + BN / 64 * B_BOX;
+  static constexpr int ESIZE = OUT == OUT_BF16 ? 2 : 4;
+  static constexpr int BOX_W = 128 / ESIZE;          // columns a box
+  static constexpr int BOXES = BN / BOX_W;           // boxes a 64-row half
+  static constexpr int CHUNK_BOXES = 64 / BOX_W;     // boxes a 64-column chunk
+  // the acc tile, or two 64-column staging buffers of 128 rows
+  static constexpr int C_BYTES =
+      OUT == OUT_ACC ? WG_BM * BN * ESIZE : 2 * WG_BM * 64 * ESIZE;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - C_BYTES - 256) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + C_BYTES + 256;
+  static_assert(STAGES >= 2 && SMEM <= SMEM_LIMIT, "ring does not fit");
+};
+
+// Output tile t of the walk -> (row tile, column tile, split): splits
+// outermost; within a split, groups of `group` row tiles, each group's
+// tiles with the row tile fastest.
+struct TileOrder {
+  int tiles_m, tiles_n, tiles, items, group;
+  __device__ TileOrder(int M, int N, int bn, int splits, int group_)
+      : group(group_) {
+    tiles_m = (M + WG_BM - 1) / WG_BM;
+    tiles_n = (N + bn - 1) / bn;
+    tiles = tiles_m * tiles_n;
+    items = tiles * splits;
+  }
+  __device__ void at(int t, int& mt, int& nt, int& split) const {
+    split = t / tiles;
+    const int r = t - split * tiles;
+    const int span = group * tiles_n;
+    const int g = r / span;
+    const int first = g * group;
+    const int gm = min(group, tiles_m - first);
+    const int rr = r - g * span;
+    mt = first + rr % gm;
+    nt = rr / gm;
+  }
+};
+
+template <int BN, int L, int OUT>
+__global__ void __launch_bounds__(384, 1)
+split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
+                               const __grid_constant__ CUtensorMap tw,
+                               const __grid_constant__ CUtensorMap ty,
+                               const __grid_constant__ CUtensorMap tacc,
+                               float* __restrict__ yacc, int M, int N,
+                               int K, int kslice, int sps, int splits,
+                               int group) {
+  using namespace hopper;
+  using P = Ps<BN, OUT>;
+  constexpr int STAGES = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ctile = smem + STAGES * P::STAGE_BYTES;   // output or acc tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(ctile + P::C_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* acc_full = empty + STAGES;   // the acc tile landed
+  uint64_t* acc_empty = acc_full + 1;    // the consumers have read it
+  const TileOrder ord(M, N, BN, splits, group);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);      // one arrival per consumer warpgroup
+    }
+    mbar_init(acc_full, 1);
+    mbar_init(acc_empty, 2);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {                    // producer: one thread issues TMA
+    setmaxnreg_dec<40>();
+    if (tid == 256) {
+      int stage = 0, phase = 0, a_phase = 0;
+      for (int t = blockIdx.x; t < ord.items; t += gridDim.x) {
+        int mt, nt, split;
+        ord.at(t, mt, nt, split);
+        const int m0 = mt * WG_BM, n0 = nt * BN;
+        const Steps st(split, K, kslice, sps);
+        // the acc tile, once the ring holds this tile's first stages and
+        // the consumers have read the last one
+        auto load_acc = [&]() {
+          mbar_wait(acc_empty, a_phase ^ 1);
+          a_phase ^= 1;
+          mbar_arrive_expect_tx(acc_full, P::C_BYTES);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int b = 0; b < P::BOXES; ++b)
+              tma_load_3d(ctile + (h * P::BOXES + b) * C_BOX, &tacc, acc_full,
+                          n0 + b * P::BOX_W, m0 + 64 * h, 0);
+        };
+        const int acc_after = min(STAGES, st.n) - 1;
+        if (OUT == OUT_ACC && st.n == 0) load_acc();
+        for (int i = 0; i < st.n; ++i) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          int k0, lo, hi;
+          st.at(i, k0, lo, hi);
+          uint8_t* a = smem + stage * P::STAGE_BYTES;
+          mbar_arrive_expect_tx(&full[stage], P::STAGE_BYTES);
+          tma_load_2d(a, &tx, &full[stage], k0, m0);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j) {
+            if (L == NT)             // 64 rows of w, K-major
+              tma_load_2d(a + A_BYTES + j * B_BOX, &tw, &full[stage], k0,
+                          n0 + 64 * j);
+            else
+              tma_load_2d(a + A_BYTES + j * B_BOX, &tw, &full[stage],
+                          n0 + 64 * j, k0);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+          if (OUT == OUT_ACC && i == acc_after) load_acc();
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  // shared memory by 32-bit address: no 64-bit pointer stays live beside
+  // the sums
+  const int t128 = tid % 128;
+  const int lane = t128 & 31;
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t full_s = smem_u32(full), empty_s = smem_u32(empty);
+  const uint32_t cwg = smem_u32(ctile) + wg * P::CHUNK_BOXES * C_BOX;
+  // the sums' layout: warp w4 of the group holds rows 16 w4 + (lane/4)
+  // and + 8 of its half; n-chunk j holds columns 8 j + 2 (lane % 4) and
+  // + 1.  In a box, 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+  // (the 128-byte swizzle).
+  const int r0 = (t128 >> 5) * 16 + (lane >> 2);
+  int stage = 0, phase = 0, acc_phase = 0;
+  uint32_t buf = 0;                 // the staging buffer of the next chunk
+  float d[BN / 2];                  // first written by a wgmma (scale_d 0)
+  for (int t = blockIdx.x; t < ord.items; t += gridDim.x) {
+    // the mainloop needs only the tile's step count (its slices are
+    // whole k-steps: nothing to zero); the coordinates are found again
+    // for the epilogue, so they hold no registers beside the sums
+    int n_steps;
+    {
+      int mt, nt, split;
+      ord.at(t, mt, nt, split);
+      n_steps = Steps(split, K, kslice, sps).n;
+    }
+    int prev = -1;
+    for (int i = 0; i < n_steps; ++i) {
+      mbar_wait(full_s + 8 * stage, phase);
+      const uint32_t a_addr = ring + stage * P::STAGE_BYTES + wg * 64 * 128;
+      const uint32_t b_addr = ring + stage * P::STAGE_BYTES + A_BYTES;
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KSTEP / 16; ++kk) {
+        const uint64_t da = wgmma_desc_sw128(a_addr + kk * 32, 16, 1024);
+        const uint64_t db =
+            L == NT ? wgmma_desc_sw128(b_addr + kk * 32, 16, 1024)
+                    : wgmma_desc_sw128(b_addr + kk * 16 * 128, B_BOX, 1024);
+        wgmma_step<BN, L>(d, da, db, i > 0 || kk > 0);
+      }
+      wgmma_commit();
+      // keep this step's products in flight; the previous step's are
+      // done, so its stage goes back to the producer
+      wgmma_wait<1>();
+      fence_regs(d);
+      if (prev >= 0 && t128 == 0) mbar_arrive(empty_s + 8 * prev);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(d);
+    if (prev >= 0 && t128 == 0) mbar_arrive(empty_s + 8 * prev);
+    if (n_steps == 0) {             // an empty K range adds nothing
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) d[j] = 0.0f;
+    }
+    int mt, nt, split;
+    ord.at(t, mt, nt, split);
+    const int m0 = mt * WG_BM, n0 = nt * BN;
+    if constexpr (OUT == OUT_ACC) {
+      // y = acc + sum: acc from its tile (this warpgroup's boxes), y from
+      // registers
+      mbar_wait(smem_u32(acc_full), acc_phase);
+      acc_phase ^= 1;
+      const uint32_t ahalf = smem_u32(ctile) + wg * P::BOXES * C_BOX;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * (lane & 3), cc = col % 32;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          const int gr = m0 + 64 * wg + r, gc = n0 + col;
+          if (gr < M && gc < N) {
+            const float2 a = ld_shared_f2(ahalf + (col / 32) * C_BOX + r * 128 +
+                                          (((cc >> 2) ^ (r & 7)) << 4) +
+                                          (cc & 3) * 4);
+            *reinterpret_cast<float2*>(yacc + (size_t)gr * N + gc) =
+                make_float2(a.x + d[4 * j + 2 * h], a.y + d[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+      named_bar_sync(1 + wg, 128);
+      if (t128 == 0) mbar_arrive(acc_empty);    // this half was read
+    } else {
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c) {
+        // the buffers alternate chunk by chunk across tiles (a tile of
+        // bn 192 has 3 chunks), so this one's store is two chunks back
+        // and bulk_wait_read<1> sees it leave
+        const uint32_t cb = cwg + buf * 2 * P::CHUNK_BOXES * C_BOX;
+        buf ^= 1;
+        if (t128 == 0) bulk_wait_read<1>();
+        named_bar_sync(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * c + jj, col = 8 * jj + 2 * (lane & 3);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h;
+            const float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
+            if constexpr (OUT == OUT_BF16) {
+              st_shared(cb + r * 128 + (((col >> 3) ^ (r & 7)) << 4) +
+                            (col & 7) * 2,
+                        pack_bf16(v0, v1));
+            } else {
+              const int cc = col % 32;
+              st_shared(cb + (col / 32) * C_BOX + r * 128 +
+                            (((cc >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4,
+                        v0, v1);
+            }
+          }
+        }
+        fence_proxy_async();
+        named_bar_sync(1 + wg, 128);
+        if (t128 == 0) {
+#pragma unroll
+          for (int b = 0; b < P::CHUNK_BOXES; ++b)
+            tma_store_3d(&ty, cb + b * C_BOX, n0 + 64 * c + b * P::BOX_W,
+                         m0 + 64 * wg, OUT == OUT_F32 ? split : 0);
+          bulk_commit();
+        }
+      }
+    }
+  }
+  if (t128 == 0) bulk_wait_all();
 }
 
 // --- split-K reduction: y = sum over splits, in split order, cast; in the
@@ -753,9 +1064,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer,
 // out (M, N) = A (M, K) . B (K, N) in layout L: x is A as stored ((M, K),
 // or (K, M) for TN), w is B as stored ((K, N), or (N, K) for NT)
 template <int BN, int L>
-int launch_wgmma(const void* x, const void* w, void* y, float* ws,
-                 const float* acc, int M, int N, int K, int kslice, int splits,
-                 int sps, cudaStream_t stream) {
+int launch_wgmma(const void* x, const void* w, void* y, float* ws, int M,
+                 int N, int K, int kslice, int splits, int sps,
+                 cudaStream_t stream) {
   CUtensorMap tx, tw;
   const bool ok_x = L == TN ? tensor_map(&tx, x, M, K, 64, KSTEP)
                             : tensor_map(&tx, x, K, M, KSTEP, WG_BM);
@@ -773,18 +1084,81 @@ int launch_wgmma(const void* x, const void* w, void* y, float* ws,
   }
   const dim3 grid((M + WG_BM - 1) / WG_BM, (N + BN - 1) / BN, splits);
   split_matmul_wgmma_kernel<BN, L><<<grid, 384, smem, stream>>>(
-      tx, tw, y, splits > 1 ? ws : nullptr, acc, M, N, K, kslice, sps);
+      tx, tw, y, splits > 1 ? ws : nullptr, M, N, K, kslice, sps);
   return (int)cudaGetLastError();
 }
 
+// an output (S, M, N) of fp32 or bf16, written (or, for acc, read) in
+// boxes of 64 rows by 128 bytes with the 128-byte swizzle
+bool out_map(CUtensorMap* map, const void* ptr, bool f32, int N, int M,
+             int S) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const int esize = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)M, (cuuint64_t)S};
+  const cuuint64_t strides[2] = {(cuuint64_t)N * esize,
+                                 (cuuint64_t)M * N * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// out (M, N) = x (M, K) . w in layout L (NN: w (K, N); NT: w (N, K)) into
+// `out`: bf16 y, fp32 partials (S = splits, M, N), or the fp32 acc + x . w
+template <int BN, int L, int OUT>
+int launch_persistent(const void* x, const void* w, void* out,
+                      const float* acc, int M, int N, int K, int kslice,
+                      int splits, int sps, int blocks, int group,
+                      cudaStream_t stream) {
+  using P = Ps<BN, OUT>;
+  CUtensorMap tx, tw, ty, tacc;
+  const bool ok =
+      tensor_map(&tx, x, K, M, KSTEP, WG_BM) &&
+      (L == NT ? tensor_map(&tw, w, K, N, KSTEP, 64)
+               : tensor_map(&tw, w, N, K, 64, KSTEP)) &&
+      (OUT == OUT_ACC ? out_map(&tacc, acc, true, N, M, 1)
+                      : out_map(&ty, out, OUT != OUT_BF16, N, M,
+                                OUT == OUT_F32 ? splits : 1));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_matmul_persistent_kernel<BN, L, OUT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  split_matmul_persistent_kernel<BN, L, OUT><<<blocks, 384, P::SMEM, stream>>>(
+      tx, tw, OUT == OUT_ACC ? tacc : ty, OUT == OUT_ACC ? tacc : ty,
+      OUT == OUT_ACC ? (float*)out : nullptr, M, N, K, kslice, sps, splits,
+      group);
+  return (int)cudaGetLastError();
+}
+
+template <int L, int OUT>
+int launch_persistent_bn(const void* x, const void* w, void* out,
+                         const float* acc, int M, int N, int K, int kslice,
+                         int bn, int splits, int sps, int blocks, int group,
+                         cudaStream_t st) {
+  if (bn == 256) return launch_persistent<256, L, OUT>(x, w, out, acc, M, N, K, kslice, splits, sps, blocks, group, st);
+  if (bn == 192) return launch_persistent<192, L, OUT>(x, w, out, acc, M, N, K, kslice, splits, sps, blocks, group, st);
+  if (bn == 128) return launch_persistent<128, L, OUT>(x, w, out, acc, M, N, K, kslice, splits, sps, blocks, group, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int L>
-int launch_wgmma_bn(const void* x, const void* w, void* y, float* ws,
-                    const float* acc, int M, int N, int K, int kslice, int bn,
-                    int splits, int sps, cudaStream_t st) {
-  if (bn == 256) return launch_wgmma<256, L>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
-  if (bn == 192) return launch_wgmma<192, L>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
-  if (bn == 128) return launch_wgmma<128, L>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
-  if (bn == 64) return launch_wgmma<64, L>(x, w, y, ws, acc, M, N, K, kslice, splits, sps, st);
+int launch_wgmma_bn(const void* x, const void* w, void* y, float* ws, int M,
+                    int N, int K, int kslice, int bn, int splits, int sps,
+                    cudaStream_t st) {
+  if (bn == 256) return launch_wgmma<256, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+  if (bn == 192) return launch_wgmma<192, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+  if (bn == 128) return launch_wgmma<128, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
+  if (bn == 64) return launch_wgmma<64, L>(x, w, y, ws, M, N, K, kslice, splits, sps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -875,25 +1249,57 @@ extern "C" int split_matmul_stream_bf16(const void* x, const void* w, void* y,
 }
 
 // layout 0 = NN (x (M,K) . w (K,N)), 1 = NT (x (M,K) . w^T, w stored
-// (N,K)), 2 = TN (x^T . w, x stored (K,M), w (K,N)); out (M, N).  NT and
-// TN need kslice % 64 == 0 (the wrapper's plan gives it).  `acc` (NN
-// only) as for the stream design.
+// (N,K)), 2 = TN (x^T . w, x stored (K,M), w (K,N)); bf16 out (M, N).
+// NT and TN need kslice % 64 == 0 (the wrapper's plan gives it).  The
+// accumulating form at these rows is the persistent design's, below.
 extern "C" int split_matmul_wgmma_bf16(const void* x, const void* w, void* y,
-                                       void* ws, const void* acc, int layout,
-                                       int M, int N, int K, int kslice,
-                                       int bn, int splits, int sps,
-                                       void* stream) {
+                                       void* ws, int layout, int M, int N,
+                                       int K, int kslice, int bn, int splits,
+                                       int sps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  float* wsf = (float*)ws;
+  if (layout != NN && kslice % KSTEP) return (int)cudaErrorInvalidValue;
+  int rc;
+  if (layout == NN) rc = launch_wgmma_bn<NN>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
+  else if (layout == NT) rc = launch_wgmma_bn<NT>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
+  else if (layout == TN) rc = launch_wgmma_bn<TN>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
+  else return (int)cudaErrorInvalidValue;
+  if (rc != 0 || splits <= 1) return rc;
+  return launch_reduce(wsf, y, nullptr, M, N, splits, st);
+}
+
+// (d): layout 0 = NN or 1 = NT as for (b), bn in {128, 192, 256} (128
+// with acc and one split), kslice a multiple of 64 or all of K; the
+// grid is `blocks` persistent blocks walking the tiles in groups of
+// `group` row tiles (`TileOrder`).  With splits > 1 the partials go to
+// `ws` and the reduce sums them (adding `acc`); else with `acc` (NN only)
+// y is the fp32 acc + x @ w, else bf16.
+extern "C" int split_matmul_persistent_bf16(const void* x, const void* w,
+                                            void* y, void* ws,
+                                            const void* acc, int layout,
+                                            int M, int N, int K, int kslice,
+                                            int bn, int splits, int sps,
+                                            int blocks, int group,
+                                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* wsf = (float*)ws;
   const float* af = (const float*)acc;
-  if (layout != NN && (kslice % KSTEP || af)) return (int)cudaErrorInvalidValue;
+  if ((layout != NN && layout != NT) || (kslice % KSTEP && kslice < K) ||
+      (layout == NT && af) || blocks < 1 || group < 1 || (splits > 1 && !wsf))
+    return (int)cudaErrorInvalidValue;
   int rc;
-  if (layout == NN) rc = launch_wgmma_bn<NN>(x, w, y, wsf, af, M, N, K, kslice, bn, splits, sps, st);
-  else if (layout == NT) rc = launch_wgmma_bn<NT>(x, w, y, wsf, nullptr, M, N, K, kslice, bn, splits, sps, st);
-  else if (layout == TN) rc = launch_wgmma_bn<TN>(x, w, y, wsf, nullptr, M, N, K, kslice, bn, splits, sps, st);
-  else return (int)cudaErrorInvalidValue;
-  if (rc != 0 || splits <= 1) return rc;
-  return launch_reduce(wsf, y, af, M, N, splits, st);
+  if (splits > 1) {
+    rc = layout == NN
+             ? launch_persistent_bn<NN, OUT_F32>(x, w, wsf, nullptr, M, N, K, kslice, bn, splits, sps, blocks, group, st)
+             : launch_persistent_bn<NT, OUT_F32>(x, w, wsf, nullptr, M, N, K, kslice, bn, splits, sps, blocks, group, st);
+    if (rc != 0) return rc;
+    return launch_reduce(wsf, y, af, M, N, splits, st);
+  }
+  if (af)   // the fp32 acc tile leaves 4 or more ring stages at bn 128 only
+    return bn == 128 ? launch_persistent<128, NN, OUT_ACC>(x, w, y, af, M, N, K, kslice, 1, sps, blocks, group, st)
+                     : (int)cudaErrorInvalidValue;
+  if (layout == NN) return launch_persistent_bn<NN, OUT_BF16>(x, w, y, nullptr, M, N, K, kslice, bn, 1, sps, blocks, group, st);
+  return launch_persistent_bn<NT, OUT_BF16>(x, w, y, nullptr, M, N, K, kslice, bn, 1, sps, blocks, group, st);
 }
 
 // out (R, C) = A . B with A(r, k) = a[r sar + k sak], B(k, c) = b[k sbk +

@@ -102,7 +102,9 @@ def lib() -> ctypes.CDLL:
         handle.split_matmul_f32.argtypes = [p] * 4 + [i] * 4 + [p]
         ll = ctypes.c_longlong
         handle.split_matmul_stream_bf16.argtypes = [p] * 5 + [i] * 7 + [p]
-        handle.split_matmul_wgmma_bf16.argtypes = [p] * 5 + [i] * 8 + [p]
+        handle.split_matmul_wgmma_bf16.argtypes = [p] * 4 + [i] * 8 + [p]
+        handle.split_matmul_persistent_bf16.argtypes = [p] * 5 + [i] * 10 \
+            + [p]
         handle.split_matmul_strided.argtypes = [p] * 3 + [i] * 3 + [ll] * 4 \
             + [i, p]
         handle.flash_attention_fwd.argtypes = [p] * 5 + [i] * 9 + [
@@ -115,6 +117,7 @@ def lib() -> ctypes.CDLL:
         for fn in (handle.split_matmul_bf16, handle.split_matmul_f32,
                    handle.split_matmul_stream_bf16,
                    handle.split_matmul_wgmma_bf16,
+                   handle.split_matmul_persistent_bf16,
                    handle.split_matmul_strided,
                    handle.flash_attention_fwd, handle.flash_attention_bwd,
                    handle.ssd_scan_bf16, handle.ssd_scan_f32):

@@ -275,28 +275,42 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _Attention.apply(q, k, v, causal, window, q_offset)
 
 
+def _split_tally(of) -> Dict[str, int]:
+    """`split_matmul`'s launches summed by `of(role, layout, variant)`."""
+    out: Dict[str, int] = {}
+    for key, n in _split.counts.items():
+        out[of(*key)] = out.get(of(*key), 0) + n
+    return out
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last `reset_launch_counts`."""
-    return {"split_matmul": _split.launches,
-            "split_matmul_acc": _split.acc_launches,
-            "split_matmul_dgrad": _split.dgrad_launches,
-            "split_matmul_wgrad": _split.wgrad_launches,
+    role = _split_tally(lambda r, lay, v: r)
+    return {"split_matmul": role.get("fwd", 0),
+            "split_matmul_acc": role.get("acc", 0),
+            "split_matmul_dgrad": role.get("dgrad", 0),
+            "split_matmul_wgrad": role.get("wgrad", 0),
             "flash_attention": _flash.launches,
             "flash_attention_bwd": _flash.bwd_launches,
             "ssd_scan": _ssd.launches}
 
 
+def split_matmul_variant_counts() -> Dict[str, int]:
+    """`split_matmul` launches by "role:design" (e.g. "dgrad:persistent")
+    since the last `reset_launch_counts`."""
+    return _split_tally(lambda r, lay, v: f"{r}:{v}")
+
+
 def split_matmul_layout_counts() -> Dict[str, int]:
     """`split_matmul` launches of every role by operand layout ("nn",
     "nt", "tn") since the last `reset_launch_counts`."""
-    return dict(_split.layout_launches)
+    return {**dict.fromkeys(_split.LAYOUTS, 0),
+            **_split_tally(lambda r, lay, v: lay)}
 
 
 def reset_launch_counts() -> None:
     """Zero the kernel launch counts and `product_counts`."""
-    _split.launches = _split.dgrad_launches = _split.wgrad_launches = 0
-    _split.acc_launches = 0
+    _split.counts.clear()
     product_counts.clear()
-    _split.layout_launches = dict.fromkeys(_split.LAYOUTS, 0)
     _flash.launches = _flash.bwd_launches = 0
     _ssd.launches = 0

@@ -3,8 +3,9 @@
 The wrapper of `csrc/split_matmul.cu`, which replaces the TPU kernel
 `src/repro/kernels/split_matmul.py::split_matmul`.  It takes CUDA
 tensors only (the plain version in `ref.py` serves the CPU; `ops`
-dispatches) and counts its launches in `launches`: one per call, which
-with split-K is the main kernel and its in-order sum of the splits.
+dispatches) and counts its launches in `counts`, by role, layout and
+design: one per call, which with split-K is the main kernel and its
+in-order sum of the splits.
 
 `plan_launch`, pure Python, chooses the design for a shape:
 
@@ -14,30 +15,46 @@ with split-K is the main kernel and its in-order sum of the splits.
 - ``"wgmma"`` (M > 64, prefill rows): TMA + wgmma, 128-row tiles of
   256/192/128/64 columns and split-K, whichever a cost model fitted on
   the card puts fastest;
-- ``"general"``: the first version, only for what the other two cannot
+- ``"persistent"`` (the accumulating form at M > 64, and dgrad): the
+  wgmma design's roles and tiles in one block a SM that walks the output
+  tiles in a grouped raster (`tile_order`), so a row tile's column tiles
+  run together and its row operand is read from memory about once, with
+  the epilogue staged through shared memory and TMA stores that drain
+  while the next tile's products run (the accumulating form TMA-loads
+  its acc tile during the mainloop and stores y from registers); bn and
+  split-K by a cost model that counts the operands' memory bytes under
+  that order (`operand_bytes`);
+- ``"general"``: the first version, only for what the others cannot
   take (float32; K or N not a multiple of 8; a base pointer not 16-byte
   aligned), with the reason in the plan.
+
+The role (`ROLES`) picks between the two prefill designs: the forward,
+the tied head's forward and wgrad keep "wgmma"; the accumulating form
+and dgrad take "persistent", whose K slices are whole 64-wide k-steps
+or one slice of all of K (a `bk` that is not a multiple of 64 is planned
+as one slice of all of K: the same fp32 sum over K, in 64-wide steps).
 
 The backward takes the same kernel in two more operand layouts
 (`LAYOUTS`), chosen by role:
 
-- `split_matmul_dgrad` (dx = dy w^T; counted in `dgrad_launches`) reads
+- `split_matmul_dgrad` (dx = dy w^T; role "dgrad") reads
   w as stored, transposed in the load ("nt"); for a weight the forward
   used transposed (the tied head, y = x emb^T) it is the plain "nn";
-- `split_matmul_wgrad` (dw = x^T dy; counted in `wgrad_launches`)
+- `split_matmul_wgrad` (dw = x^T dy; role "wgrad")
   contracts over the rows ("tn");
 - `split_matmul(..., transpose_w=True)` is the tied head's forward in
   "nt", with no transposed copy of the embedding.
 
 The accumulating form `split_matmul(x, w, acc=y)` returns the fp32
-`y + x @ w` (counted in `acc_launches`): the forward layout's designs
-with an epilogue that adds the product's fp32 sum into the fp32 tile of
-`acc` instead of casting it, so a chunked product (`core/operator_split`)
-sums its chunks in fp32 as the TPU kernel's K-slice accumulator does.
+`y + x @ w` (role "acc"): the "stream", "persistent" and "general"
+designs in the forward layout with an epilogue that adds the product's
+fp32 sum into the fp32 tile of `acc` instead of casting it, so a
+chunked product (`core/operator_split`) sums its chunks in fp32 as the
+TPU kernel's K-slice accumulator does.
 
-"nt" and "tn" take the wgmma design at every row count, with K cut at
+"nt" and "tn" take the wgmma designs at every row count, with K cut at
 multiples of 64 (`BWD_KSLICE`, so only the tensor's end is ragged) and
-split-K where the tiles leave SMs idle; what it cannot take (float32,
+split-K where the tiles leave SMs idle; what they cannot take (float32,
 a dimension not a multiple of 8, a misaligned pointer) goes to a
 strided CUDA-core kernel (variant "general").
 """
@@ -67,12 +84,16 @@ SM_TILE_BYTES = 5.5e10  # bytes/s
 WS_BYTES = 3e12        # bytes/s
 LAUNCH_S = 2e-6        # seconds
 LAYOUTS = {"nn": 0, "nt": 1, "tn": 2}   # the C entry's layout codes
+ROLES = ("fwd", "acc", "dgrad", "wgrad")
+PERSISTENT_BNS = (256, 192, 128)
+HBM_BYTES = 3.35e12    # H100 SXM device memory, bytes/s (data sheet)
+SMEM_LIMIT = 232448    # dynamic shared memory a block may use
+MIN_STAGES = 4         # the persistent ring: with 3 its loads showed on the
+                       # card (acc at bn 192: 0.168 ms; bn 128, 5 stages:
+                       # 0.153)
 BWD_KSLICE = 512       # K unit of the "nt"/"tn" plans, a multiple of 64
-launches = 0           # forward launches since the last reset
-dgrad_launches = 0     # dx launches
-wgrad_launches = 0     # dw launches
-acc_launches = 0       # accumulating forward launches (fp32 acc + x @ w)
-layout_launches = dict.fromkeys(LAYOUTS, 0)   # every role's, by layout
+counts = {}            # (role, layout, variant) -> launches since the
+                       # last reset (`ops.reset_launch_counts`)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,20 +102,79 @@ class LaunchPlan:
     `slices_per_split` whole slices of `kslice`; with splits > 1 the
     fp32 partials go to a `workspace` of that shape and are summed in
     split order."""
-    variant: str            # "stream" | "wgmma" | "general"
-    bm: int                 # output rows a block
-    bn: int                 # output columns a block
+    variant: str            # "stream" | "wgmma" | "persistent" | "general"
+    bm: int                 # output rows a block (a tile)
+    bn: int                 # output columns a block (a tile)
     kslice: int             # bk, at most K
     splits: int
     slices_per_split: int
     blocks: int             # blocks of the main kernel
     workspace: Tuple[int, ...]
     reason: str
+    # "persistent" only: row tiles a group of the walk (`tile_order`),
+    # ring stages, shared memory a block, and the modelled bytes of the
+    # row operand (A) and of the column operand (B) read from memory
+    group: int = 0
+    stages: int = 0
+    smem: int = 0
+    row_bytes: int = 0
+    col_bytes: int = 0
 
     def k_ranges(self, K: int) -> List[Tuple[int, int]]:
         span = self.slices_per_split * self.kslice
         return [(s * span, min(K, (s + 1) * span))
                 for s in range(self.splits)]
+
+
+def persistent_smem(bn: int, out_bytes: int,
+                    acc: bool = False) -> Tuple[int, int]:
+    """(ring stages, shared memory bytes) of a persistent block whose
+    output of `out_bytes`-byte elements is staged in two 128 x 64 buffers
+    (with `acc`, the accumulating form: its 128 x bn fp32 acc tile), as
+    the kernel's `Ps` computes them."""
+    stage = WGMMA_BM * 64 * 2 + bn // 64 * 64 * 64 * 2
+    tile = WGMMA_BM * (bn if acc else 2 * 64) * out_bytes
+    stages = min(8, (SMEM_LIMIT - 1024 - tile - 256) // stage)
+    return stages, 1024 + stages * stage + tile + 256
+
+
+def tile_order(M: int, N: int, bn: int, splits: int,
+               group: int) -> List[Tuple[int, int, int]]:
+    """(row tile, column tile, split) of each item of the persistent
+    walk, in order, as the kernel's `TileOrder`: splits outermost; within
+    a split, groups of `group` row tiles, each group's items with the row
+    tile fastest.  Block b takes items b, b + blocks, b + 2 blocks, ..."""
+    tiles_m, tiles_n = math.ceil(M / WGMMA_BM), math.ceil(N / bn)
+    tiles, span = tiles_m * tiles_n, group * tiles_n
+    out = []
+    for t in range(tiles * splits):
+        split, r = divmod(t, tiles)
+        g, rr = divmod(r, span)
+        first = g * group
+        gm = min(group, tiles_m - first)
+        out.append((first + rr % gm, rr // gm, split))
+    return out
+
+
+def operand_bytes(M: int, N: int, K: int, bn: int, splits: int, span: int,
+                  blocks: int, group: int) -> Tuple[int, int]:
+    """Modelled bytes of the row operand (A, M x K) and the column operand
+    (B, K x N) that the persistent walk reads from device memory: the
+    `blocks` blocks run about `blocks` consecutive items at a time, so an
+    item's A tile (its row tile over its split's K range) comes from L2
+    when one of the `blocks` items before it read the same tile, and from
+    memory otherwise; the same for its B tile."""
+    order = tile_order(M, N, bn, splits, group)
+    last_a, last_b = {}, {}
+    a_bytes = b_bytes = 0
+    for t, (mt, nt, split) in enumerate(order):
+        k_len = min(K, (split + 1) * span) - min(K, split * span)
+        if t - last_a.get((mt, split), -blocks - 1) > blocks:
+            a_bytes += min(WGMMA_BM, M - mt * WGMMA_BM) * k_len * 2
+        if t - last_b.get((nt, split), -blocks - 1) > blocks:
+            b_bytes += min(bn, N - nt * bn) * k_len * 2
+        last_a[(mt, split)] = last_b[(nt, split)] = t
+    return a_bytes, b_bytes
 
 
 def _splits(n_slices: int, want: int) -> Tuple[int, int]:
@@ -106,10 +186,13 @@ def _splits(n_slices: int, want: int) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=4096)
 def plan_launch(M: int, N: int, K: int, bk: int, *, n_sm: int = N_SM,
                 dtype: str = "bfloat16", aligned: bool = True,
-                layout: str = "nn") -> LaunchPlan:
+                layout: str = "nn", role: str = "fwd") -> LaunchPlan:
     """The design, tile and K split for out(M, N) = A(M, K) . B(K, N)
     with K slices of `bk`, on a card of `n_sm` SMs; `layout` says how A
-    and B are stored (`LAYOUTS`)."""
+    and B are stored (`LAYOUTS`), `role` which product it is (`ROLES`):
+    "acc" writes the fp32 acc + A . B."""
+    if role not in ROLES or (role == "acc" and layout != "nn"):
+        raise ValueError(f"plan_launch: role {role!r} in layout {layout!r}")
     if layout == "nn":
         kslice = max(1, min(bk, K))
     else:
@@ -152,6 +235,12 @@ def plan_launch(M: int, N: int, K: int, bk: int, *, n_sm: int = N_SM,
                     f"{math.ceil(N / bn) * n_slices} blocks, the most "
                     f"{n_slices} slices of {kslice} allow")
 
+    if role in ("acc", "dgrad") and layout != "tn":
+        if kslice % 64:     # whole k-steps, or one slice of all of K
+            kslice, n_slices = K, 1
+        return _plan_persistent(M, N, K, kslice, n_slices, n_sm, role,
+                                layout, plan)
+
     # prefill rows: the least estimated time: waves x one block's steps,
     # each step bound by its products or by taking in its x and w tiles;
     # with split-K, plus the fp32 partials written and read back and the
@@ -176,6 +265,56 @@ def plan_launch(M: int, N: int, K: int, bk: int, *, n_sm: int = N_SM,
                 else f"layout {layout}: TMA + wgmma")
 
 
+def _plan_persistent(M, N, K, kslice, n_slices, n_sm, role, layout,
+                     plan) -> LaunchPlan:
+    """The persistent design's bn and split-K: the least estimated time,
+    the larger of the busiest block's steps (each bound by its products
+    or by taking in its tiles, as for "wgmma") and the device memory the
+    walk moves (`operand_bytes`, the output, `acc` and the split-K
+    workspace), plus with split-K the reduce's launch.  A tile of fp32
+    outputs leaves room for fewer stages: bn with fewer than MIN_STAGES
+    is not taken."""
+    out_bytes = 4 if role == "acc" else 2
+    tiles_m = math.ceil(M / WGMMA_BM)
+    best, best_cost = None, math.inf
+    for bn in PERSISTENT_BNS:
+        tiles_n = math.ceil(N / bn)
+        step = max(2.0 * WGMMA_BM * bn * 64 / SM_FLOPS,
+                   2.0 * (WGMMA_BM + bn) * 64 / SM_TILE_BYTES)
+        for want in range(1, min(n_slices, 16) + 1):
+            splits, sps = _splits(n_slices, want)
+            stages, smem = persistent_smem(
+                bn, 4 if splits > 1 else out_bytes,
+                acc=role == "acc" and splits == 1)
+            if stages < MIN_STAGES and bn != PERSISTENT_BNS[-1]:
+                continue
+            items = tiles_m * tiles_n * splits
+            blocks = min(n_sm, items)
+            group = max(1, min(tiles_m, blocks // tiles_n))
+            span = sps * kslice
+            steps = math.ceil(min(K, span) / 64)
+            a_b, b_b = operand_bytes(M, N, K, bn, splits, span, blocks,
+                                     group)
+            out = M * N * (8.0 * splits if splits > 1 else out_bytes)
+            mem = a_b + b_b + out + (4.0 * M * N if role == "acc" else 0)
+            if splits > 1:          # the reduce reads the partials back
+                mem += 4.0 * splits * M * N + M * N * out_bytes
+            cost = max(math.ceil(items / blocks) * steps * step,
+                       mem / HBM_BYTES)
+            if splits > 1:
+                cost += LAUNCH_S
+            if cost < best_cost:
+                best_cost = cost
+                best = (bn, splits, sps, blocks, group, stages, smem, a_b,
+                        b_b)
+    bn, splits, sps, blocks, group, stages, smem, a_b, b_b = best
+    p = plan("persistent", WGMMA_BM, bn, splits, sps,
+             f"{role} in layout {layout}: persistent TMA + wgmma, "
+             f"{blocks} blocks")
+    return dataclasses.replace(p, blocks=blocks, group=group, stages=stages,
+                               smem=smem, row_bytes=a_b, col_bytes=b_b)
+
+
 @functools.lru_cache(maxsize=None)
 def _n_sm(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -194,13 +333,14 @@ def dims(a: torch.Tensor, b: torch.Tensor, layout: str) -> Tuple[int, int,
 
 
 def plan_for(x: torch.Tensor, w: torch.Tensor, bk: int,
-             layout: str = "nn") -> LaunchPlan:
-    """`plan_launch` for these tensors on their card."""
+             layout: str = "nn", role: str = "fwd") -> LaunchPlan:
+    """`plan_launch` for these tensors on their card (its SM count read
+    from the device)."""
     M, N, K = dims(x, w, layout)
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     return plan_launch(M, N, K, bk, n_sm=_n_sm(x.device.index or 0),
                        dtype=str(x.dtype).removeprefix("torch."),
-                       aligned=aligned, layout=layout)
+                       aligned=aligned, layout=layout, role=role)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, layout: str, what: str):
@@ -223,9 +363,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, layout: str, bk: int,
             role: str, acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out(M, N) = A . B (see `dims`) in a's dtype through the plan's
     design, or with `acc` (layout "nn") the fp32 acc + A . B; a launch
-    adds one to the count of `role` ("fwd", "dgrad", "wgrad" or "acc")
-    and of its layout."""
-    global launches, dgrad_launches, wgrad_launches, acc_launches
+    adds one to `counts` under (role, layout, design)."""
     M, N, K = dims(a, b, layout)
     y = torch.empty((M, N), dtype=a.dtype if acc is None else torch.float32,
                     device=a.device)
@@ -235,7 +373,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, layout: str, bk: int,
         return y.zero_() if acc is None else y.copy_(acc)
     acc_ptr = acc.data_ptr() if acc is not None else None
     lib = _lib.lib()
-    plan = plan_for(a, b, bk, layout)
+    plan = plan_for(a, b, bk, layout, role)
     stream = _lib.stream_of(a)
     if plan.variant == "general" and layout == "nn":
         fn = (lib.split_matmul_bf16 if a.dtype == torch.bfloat16
@@ -253,25 +391,23 @@ def _launch(a: torch.Tensor, b: torch.Tensor, layout: str, bk: int,
         ws = (torch.empty(plan.workspace, dtype=torch.float32,
                           device=a.device) if plan.workspace else None)
         args = (a.data_ptr(), b.data_ptr(), y.data_ptr(),
-                ws.data_ptr() if ws is not None else None, acc_ptr)
+                ws.data_ptr() if ws is not None else None)
         if plan.variant == "stream":
             rc = lib.split_matmul_stream_bf16(
-                *args, M, N, K, plan.kslice, plan.bn, plan.splits,
+                *args, acc_ptr, M, N, K, plan.kslice, plan.bn, plan.splits,
                 plan.slices_per_split, stream)
-        else:
+        elif plan.variant == "persistent":
+            rc = lib.split_matmul_persistent_bf16(
+                *args, acc_ptr, LAYOUTS[layout], M, N, K, plan.kslice,
+                plan.bn, plan.splits, plan.slices_per_split, plan.blocks,
+                plan.group, stream)
+        else:               # the plan sends no accumulating call here
             rc = lib.split_matmul_wgmma_bf16(
                 *args, LAYOUTS[layout], M, N, K, plan.kslice, plan.bn,
                 plan.splits, plan.slices_per_split, stream)
     _lib.check(rc, f"split_matmul ({layout}, {plan.variant})")
-    layout_launches[layout] += 1
-    if role == "dgrad":
-        dgrad_launches += 1
-    elif role == "wgrad":
-        wgrad_launches += 1
-    elif role == "acc":
-        acc_launches += 1
-    else:
-        launches += 1
+    key = (role, layout, plan.variant)
+    counts[key] = counts.get(key, 0) + 1
     return y
 
 

@@ -353,8 +353,10 @@ def test_remat_chain_plans_take_a_new_design(layout):
                "nt": (REMAT_BATCH, REMAT_WIDTH, REMAT_WIDTH),
                "tn": (REMAT_WIDTH, REMAT_WIDTH, REMAT_BATCH)}[layout]
     bk = 512 if layout == "nn" else BWD_KSLICE
-    plan = plan_launch(M, N, K, bk, layout=layout)
-    assert plan.variant == ("stream" if layout == "nn" else "wgmma"), plan
+    role, design = {"nn": ("fwd", "stream"), "nt": ("dgrad", "persistent"),
+                    "tn": ("wgrad", "wgmma")}[layout]
+    plan = plan_launch(M, N, K, bk, layout=layout, role=role)
+    assert plan.variant == design, plan
     assert plan.k_ranges(K)[-1][1] == K
 
 

@@ -2,13 +2,17 @@
 
 `repro_torch.kernels.split_matmul.plan_launch` is pure Python: it picks
 the CUDA design for a product (weight streaming with split-K for decode
-rows, TMA + wgmma for prefill rows, the general first-version kernel
-only where neither can run), its tile and its K split, for each
-operand layout: "nn" (the forward), "nt" (the backward's dgrad and the
-tied head's forward) and "tn" (wgrad).  Here it is checked at every
-product of the two served models and of qwen1.5-0.5b's training step,
-read from their configurations, and at the cases that force the
-general kernel.  The
+rows, TMA + wgmma for prefill rows, the persistent TMA + wgmma design
+for the accumulating form and dgrad, the general first-version kernel
+only where none can run), its tile and its K split, for each operand
+layout: "nn" (the forward, the accumulating form, the tied head's
+dgrad), "nt" (dgrad and the tied head's forward) and "tn" (wgrad).  Here
+it is checked at every product of the two served models and of
+qwen1.5-0.5b's training step, read from their configurations, and at
+the cases that force the general kernel; the persistent design's walk
+over its tiles (`tile_order`, the kernel's `TileOrder`) and its model
+of the operands' memory bytes (`operand_bytes`) are checked by
+enumeration.  The
 order the kernels sum in (fp32 partials over whole K slices, ranges
 summed in order) is `ref.split_matmul_splitk_ref`; it is held against
 the Pallas `split_matmul` in interpret mode, as `tests/test_kernels.py`
@@ -30,9 +34,12 @@ from repro.kernels import ops as jops
 from repro_torch.configs import get_arch
 from repro_torch.convert import to_torch
 from repro_torch.kernels import ref
-from repro_torch.kernels.split_matmul import (BWD_KSLICE, N_SM,
+from repro_torch.kernels.split_matmul import (BWD_KSLICE, MIN_STAGES, N_SM,
+                                               PERSISTENT_BNS, SMEM_LIMIT,
                                                STREAM_BNS, STREAM_MAX_M,
-                                               plan_launch)
+                                               WGMMA_BM, operand_bytes,
+                                               persistent_smem, plan_launch,
+                                               tile_order)
 
 BK = 512                       # the serve path's K slice (ops default)
 
@@ -150,18 +157,51 @@ def _rand(rng, shape, dtype):
     return a.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else a
 
 
-@pytest.mark.parametrize("M,K,N,bk,n_sm", [
-    (8, 512, 64, 64, 4),        # stream: 8 slices over the splits
-    (8, 768, 128, 128, 8),      # stream, slices of 128
-    (128, 2048, 128, 256, 16),  # wgmma rows, split-K on a small card
-])
+@pytest.mark.parametrize("M,K,N,bk,n_sm,layout,role", [
+    (8, 512, 64, 64, 4, "nn", "fwd"),       # stream: 8 slices over splits
+    (8, 768, 128, 128, 8, "nn", "fwd"),     # stream, slices of 128
+    (128, 2048, 128, 256, 16, "nn", "fwd"),  # wgmma rows, split-K, small card
+    (128, 2048, 128, 256, 16, "nn", "acc"),  # persistent, the acc's split-K
+    (200, 1536, 72, 192, 8, "nn", "acc"),    # persistent, ragged M and N
+    (64, 2048, 192, 256, 16, "nt", "dgrad"),  # persistent dgrad, split-K
+], ids=lambda v: str(v))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_split_k_order_matches_pallas(M, K, N, bk, n_sm, dtype):
+def test_split_k_order_matches_pallas(M, K, N, bk, n_sm, layout, role,
+                                      dtype):
     """The kernels' split-K order (per-slice fp32 partials, summed in
-    split order) against the Pallas kernel's sequential K walk."""
-    plan = plan_launch(M, N, K, bk, n_sm=n_sm)
+    split order) against the Pallas kernel's sequential K walk, for each
+    design that splits K (the persistent design's plans included; "nt"
+    reads w stored (N, K), the same product)."""
+    plan = plan_launch(M, N, K, bk, n_sm=n_sm, layout=layout, role=role)
     assert plan.splits > 1
+    assert plan.variant == ("persistent" if role != "fwd" else
+                            "stream" if M <= STREAM_MAX_M else "wgmma")
+    assert plan.kslice == bk
     rng = np.random.default_rng(M + K + N + bk)
+    x, w = _rand(rng, (M, K), dtype), _rand(rng, (K, N), dtype)
+    want = jops.split_matmul(jnp.asarray(x), jnp.asarray(w), bm=M, bn=N,
+                             bk=bk, interpret=True)
+    got = ref.split_matmul_splitk_ref(to_torch(x, "cpu"), to_torch(w, "cpu"),
+                                      plan.kslice, plan.k_ranges(K))
+    tol = (dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16"
+           else dict(atol=2e-4, rtol=1e-3))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("M,K,N,layout,role", [
+    (300, 1000, 256, "nn", "acc"),     # the accumulating form, bk 100
+    (200, 600, 136, "nn", "dgrad"),    # the head's dgrad layout, bk 100
+], ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whole_k_slice_matches_pallas(M, K, N, layout, role, dtype):
+    """A `bk` that is not a multiple of 64 is planned by the persistent
+    design as one slice of all of K; its one fp32 sum over K holds
+    against the Pallas kernel's walk in slices of that `bk`."""
+    bk = 100
+    plan = plan_launch(M, N, K, bk, layout=layout, role=role)
+    assert (plan.variant, plan.kslice, plan.splits) == ("persistent", K, 1)
+    rng = np.random.default_rng(M + K + N)
     x, w = _rand(rng, (M, K), dtype), _rand(rng, (K, N), dtype)
     want = jops.split_matmul(jnp.asarray(x), jnp.asarray(w), bm=M, bn=N,
                              bk=bk, interpret=True)
@@ -194,14 +234,15 @@ CE_ROWS = 8 * 512              # one chunk of the chunked cross-entropy
                          _products("qwen1.5-0.5b")[0],
                          ids=lambda v: str(v))
 def test_backward_plans_at_qwen_training_shapes(name, K, N):
-    """Every backward product of the training step takes the wgmma
+    """Every backward product of the training step takes a TMA + wgmma
     design (never the general kernel), with K cut at multiples of 64:
-    dgrad dy (rows, N) . w^T ("nt") and wgrad x^T . dy ("tn", contracted
-    over the rows)."""
-    for M_, N_, K_, layout in ((TRAIN_ROWS, K, N, "nt"),
-                               (K, N, TRAIN_ROWS, "tn")):
-        plan = plan_launch(M_, N_, K_, BWD_KSLICE, layout=layout)
-        assert plan.variant == "wgmma", plan
+    dgrad dy (rows, N) . w^T ("nt") the persistent design, wgrad x^T . dy
+    ("tn", contracted over the rows) the grid design."""
+    for M_, N_, K_, layout, role, design in (
+            (TRAIN_ROWS, K, N, "nt", "dgrad", "persistent"),
+            (K, N, TRAIN_ROWS, "tn", "wgrad", "wgmma")):
+        plan = plan_launch(M_, N_, K_, BWD_KSLICE, layout=layout, role=role)
+        assert plan.variant == design, plan
         assert plan.kslice % 64 == 0
         spans = plan.k_ranges(K_)
         assert spans[0][0] == 0 and spans[-1][1] == K_
@@ -211,15 +252,180 @@ def test_backward_plans_at_qwen_training_shapes(name, K, N):
 def test_head_plans_take_the_transposed_layouts():
     """The tied head at one CE chunk: the forward x emb^T reads the
     (V, d) embedding as stored ("nt"), its dgrad is dy emb ("nn") and
-    its wgrad dy^T x ("tn"), all on wgmma; the backward layouts never
-    stream, and fall back to the strided kernel only for what wgmma
-    cannot take."""
+    its wgrad dy^T x ("tn"): the forward and wgrad on the grid design,
+    dgrad on the persistent one; the backward layouts never stream, and
+    fall back to the strided kernel only for what wgmma cannot take."""
     _, (_, d, Vp) = _products("qwen1.5-0.5b")
     fwd = plan_launch(CE_ROWS, Vp, d, BK, layout="nt")
-    dgrad = plan_launch(CE_ROWS, d, Vp, BWD_KSLICE)
-    wgrad = plan_launch(Vp, d, CE_ROWS, BWD_KSLICE, layout="tn")
-    assert {fwd.variant, dgrad.variant, wgrad.variant} == {"wgmma"}
+    dgrad = plan_launch(CE_ROWS, d, Vp, BWD_KSLICE, role="dgrad")
+    wgrad = plan_launch(Vp, d, CE_ROWS, BWD_KSLICE, layout="tn",
+                        role="wgrad")
+    assert (fwd.variant, dgrad.variant, wgrad.variant) == (
+        "wgmma", "persistent", "wgmma")
     assert plan_launch(8, 1024, 1024, BK, layout="nt").variant == "wgmma"
+    assert plan_launch(8, 1024, 1024, BWD_KSLICE, layout="nt",
+                       role="dgrad").variant == "persistent"
     assert plan_launch(5, 19, 37, BK, layout="tn").variant == "general"
     assert plan_launch(64, 72, 80, BK, dtype="float32",
                        layout="nt").variant == "general"
+
+
+# --- the persistent design: the accumulating form and dgrad ---------------
+
+SPLIT = 4                      # the 64 GiB plan's uniform FFN split
+
+
+def _acc_dgrad_products():
+    """(name, role, layout, M, N, K, bk) of every accumulating and dgrad
+    product of qwen1.5-0.5b's step, as out(M, N) = A(M, K) . B: the
+    layers' dgrad (dy (rows, N_fwd) . w^T, "nt"), unchunked and at the
+    plan's FFN split of 4 (w13 chunk d x 2 ff/4, w2 chunk ff/4 x d), the
+    w2 chunk's accumulating forward ("nn", bk 512), and the tied head's
+    dgrad at a CE chunk (dy (rows, V) . emb, "nn")."""
+    layers, (_, d, Vp) = _products("qwen1.5-0.5b")
+    c = get_arch("qwen1.5-0.5b").d_ff // SPLIT
+    out = [(f"dgrad-{n}", "dgrad", "nt", TRAIN_ROWS, K, N, BWD_KSLICE)
+           for n, K, N in layers + [("w13_chunk", d, 2 * c),
+                                    ("w2_chunk", c, d)]]
+    out.append(("acc-w2_chunk", "acc", "nn", TRAIN_ROWS, d, c, BK))
+    out.append(("dgrad-head", "dgrad", "nn", CE_ROWS, d, Vp, BWD_KSLICE))
+    return [pytest.param(*p[1:], id=p[0]) for p in out]
+
+
+@pytest.mark.parametrize("role,layout,M,N,K,bk", _acc_dgrad_products())
+def test_acc_and_dgrad_take_the_persistent_design(role, layout, M, N, K,
+                                                  bk):
+    """Each accumulating and dgrad product of the step takes the
+    persistent design: one block a SM at most, K cut on whole slices,
+    a ring of at least MIN_STAGES stages beside its output tile within a
+    block's shared memory, the row operand read from memory once."""
+    plan = plan_launch(M, N, K, bk, layout=layout, role=role)
+    assert plan.variant == "persistent", plan
+    assert plan.bm == WGMMA_BM and plan.bn in PERSISTENT_BNS
+    assert plan.kslice == (min(bk, K) if layout == "nn"
+                           else 64 * math.ceil(min(bk, K) / 64))
+    _check_ranges(plan, K)
+    items = math.ceil(M / WGMMA_BM) * math.ceil(N / plan.bn) * plan.splits
+    assert plan.blocks == min(N_SM, items)
+    out_bytes = 4 if role == "acc" or plan.splits > 1 else 2
+    assert (plan.stages, plan.smem) == persistent_smem(
+        plan.bn, out_bytes, acc=role == "acc" and plan.splits == 1)
+    assert plan.stages >= MIN_STAGES and plan.smem <= SMEM_LIMIT
+    assert plan.workspace == ((plan.splits, M, N) if plan.splits > 1
+                              else ())
+    assert plan.row_bytes == M * K * 2          # one pass of A
+
+
+def test_stream_rows_keep_the_stream_design():
+    """At decode rows the accumulating form and the "nn" dgrad stay on
+    weight streaming; wgrad and the forward never take the persistent
+    design."""
+    assert plan_launch(8, 1024, 704, BK, role="acc").variant == "stream"
+    assert plan_launch(64, 1024, 2048, BWD_KSLICE,
+                       role="dgrad").variant == "stream"
+    assert plan_launch(65, 1024, 704, BK, role="acc").variant == \
+        "persistent"
+    # slices cut inside a 64-wide k-step: one slice of all of K
+    plan = plan_launch(300, 256, 1000, 100, role="acc")
+    assert (plan.variant, plan.kslice, plan.splits) == ("persistent", 1000,
+                                                        1)
+    for role, layout in (("fwd", "nn"), ("fwd", "nt"), ("wgrad", "tn")):
+        assert plan_launch(4096, 1024, 1024, BK, layout=layout,
+                           role=role).variant == "wgmma"
+    with pytest.raises(ValueError):
+        plan_launch(4096, 1024, 1024, BK, layout="nt", role="acc")
+
+
+# forward "nn" at the layer products and the w13 chunk, the tied head's
+# forward "nt" at a CE chunk and every wgrad "tn": (M, N, K, layout, bn,
+# splits, slices a split, blocks) as the grid design plans them
+PINNED = {
+    "fwd-attn": (TRAIN_ROWS, 1024, 1024, "nn", 256, 1, 2, 1024),
+    "fwd-w13": (TRAIN_ROWS, 5632, 1024, "nn", 256, 1, 2, 5632),
+    "fwd-w2": (TRAIN_ROWS, 1024, 2816, "nn", 256, 1, 6, 1024),
+    "fwd-w13_chunk": (TRAIN_ROWS, 1408, 1024, "nn", 256, 1, 2, 1536),
+    "fwd-head-nt": (CE_ROWS, 152064, 1024, "nt", 256, 1, 2, 19008),
+    "wgrad-attn": (1024, 1024, TRAIN_ROWS, "tn", 256, 4, 16, 128),
+    "wgrad-w13": (1024, 5632, TRAIN_ROWS, "tn", 256, 3, 22, 528),
+    "wgrad-w2": (2816, 1024, TRAIN_ROWS, "tn", 256, 3, 22, 264),
+    "wgrad-w13_chunk": (1024, 1408, TRAIN_ROWS, "tn", 192, 2, 32, 128),
+    "wgrad-w2_chunk": (704, 1024, TRAIN_ROWS, "tn", 256, 5, 13, 120),
+    "wgrad-head": (152064, 1024, CE_ROWS, "tn", 256, 1, 8, 4752),
+}
+
+
+@pytest.mark.parametrize("name", list(PINNED))
+def test_grid_design_plans_stay_pinned(name):
+    M, N, K, layout, bn, splits, sps, blocks = PINNED[name]
+    role = "wgrad" if layout == "tn" else "fwd"
+    plan = plan_launch(M, N, K, 512, layout=layout, role=role)
+    assert (plan.variant, plan.bn, plan.splits, plan.slices_per_split,
+            plan.blocks) == ("wgmma", bn, splits, sps, blocks)
+
+
+def test_tile_order_by_hand():
+    """3 row tiles x 2 column tiles, groups of 2 row tiles, 2 splits:
+    the first group's 4 tiles with the row tile fastest, then the last
+    row tile's 2, then the same for the second split."""
+    order = tile_order(3 * WGMMA_BM - 5, 2 * 128, 128, 2, 2)
+    one = [(0, 0), (1, 0), (0, 1), (1, 1), (2, 0), (2, 1)]
+    assert order == [(m, n, s) for s in range(2) for m, n in one]
+
+
+# (M, N, K, bn, splits, blocks, group): the path's shapes, ragged edges,
+# fewer tiles than blocks, tiles not a multiple of the blocks, split-K
+ORDER_CASES = [
+    (TRAIN_ROWS, 1024, 1024, 256, 1, 132, 33),
+    (TRAIN_ROWS, 1024, 704, 128, 1, 132, 16),
+    (TRAIN_ROWS, 704, 1024, 256, 1, 132, 44),
+    (32845, 1000, 704, 128, 1, 132, 16),
+    (300, 1000, 704, 128, 1, 24, 3),
+    (4000, 2000, 704, 192, 1, 132, 12),
+    (256, 256, 8192, 192, 16, 64, 2),
+    (CE_ROWS, 1024, 152064, 256, 1, 128, 32),
+]
+
+
+@pytest.mark.parametrize("M,N,K,bn,splits,blocks,group", ORDER_CASES,
+                         ids=lambda v: str(v))
+def test_tile_order_covers_every_tile_once(M, N, K, bn, splits, blocks,
+                                           group):
+    """Over the persistent blocks (block b takes items b, b + blocks,
+    ...), every (row tile, column tile, split) is computed exactly once,
+    and no block takes more than its share rounded up."""
+    order = tile_order(M, N, bn, splits, group)
+    tiles_m, tiles_n = math.ceil(M / WGMMA_BM), math.ceil(N / bn)
+    walked = [order[t] for b in range(blocks)
+              for t in range(b, len(order), blocks)]
+    assert sorted(walked) == [(m, n, s) for m in range(tiles_m)
+                              for n in range(tiles_n)
+                              for s in range(splits)]
+    per_block = [len(range(b, len(order), blocks)) for b in range(blocks)]
+    assert max(per_block) == math.ceil(len(order) / blocks)
+    assert min(per_block) >= 1
+
+
+@pytest.mark.parametrize("layout", ["nt", "nn"])
+def test_bn_192_walks_several_tiles_a_block(layout):
+    """The dgrad case of `chip_smoke.py` that takes bn 192 through the
+    wrapper (3 chunks of 64 columns a tile, an odd count, so the staging
+    buffers alternate across tile boundaries): one split of 3 k-steps,
+    about 3 tiles a block."""
+    plan = plan_launch(8192, 1152, 192, BWD_KSLICE, layout=layout,
+                       role="dgrad")
+    items = math.ceil(8192 / WGMMA_BM) * math.ceil(1152 / plan.bn)
+    assert (plan.variant, plan.bn, plan.splits) == ("persistent", 192, 1)
+    assert items >= 2 * plan.blocks
+
+
+def test_operand_bytes_one_pass_against_row_tiles_fastest():
+    """At the attention dgrad (32768 rows, bn 256: 4 column tiles) the
+    grouped raster reads dy once; with all 256 row tiles in one group
+    (the grid design's order, row tiles fastest) each column tile reads
+    it again, and the 2 MB weight stays one pass either way."""
+    M, N, K, bn, blocks = TRAIN_ROWS, 1024, 1024, 256, 132
+    one = M * K * 2
+    a, b = operand_bytes(M, N, K, bn, 1, K, blocks, 33)
+    assert (a, b) == (one, N * K * 2)
+    a, b = operand_bytes(M, N, K, bn, 1, K, blocks, M // WGMMA_BM)
+    assert (a, b) == (4 * one, N * K * 2)

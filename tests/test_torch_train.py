@@ -29,7 +29,14 @@ step's within 1e-2: AdamW's first updates move each weight by about lr
 whatever its gradient's size, so gradient entries near 0, whose sign
 the two packages' summation orders can flip, grow the difference about
 a hundredfold a step (measured 8.7e-7, 1.7e-5, 1.8e-3 under the mixed
-plan, whose segment-wise init makes activations about 4x larger).  In
+plan, whose segment-wise init makes activations about 4x larger).  That
+is rounding, not a different function: float64 parameters alone do not
+remove it, since both packages compute attention scores, norms, RoPE,
+SwiGLU, the cross-entropy and AdamW's state in float32 whatever the
+parameters' type; with every float32 of both lifted to float64
+(`test_mixed_plan_gap_is_float32_rounding`) the mixed plan at
+microbatch 2 agrees with JAX to float64 rounding (losses 4.2e-16, the
+step-3 grad norm 1.2e-12, parameters 6.6e-9 of a leaf's norm).  In
 bfloat16 the frameworks round activations and gradients at different
 places (see tests/test_torch_backward.py): losses within 5e-3 and grad
 norms within 3e-2 (measured 4.9e-5 and 7.8e-4).
@@ -313,6 +320,55 @@ def test_three_steps_match_jax_make_train_step(name, plan, remat,
     np.testing.assert_allclose(res.grad_norms[0], jnorms[0], rtol=first)
     np.testing.assert_allclose(res.grad_norms, jnorms, rtol=every)
     assert res.final_metrics["tokens"] == 4 * 64 / max(1, microbatch)
+
+
+def test_mixed_plan_gap_is_float32_rounding(monkeypatch):
+    """The mixed plan at microbatch 2, the float32 case whose step-3 grad
+    norm differs from JAX by 1.8e-3, run again with every float32 of
+    both packages lifted to float64: the parameters, and the attention
+    scores, norms, RoPE, SwiGLU, cross-entropy, gradient accumulators and
+    AdamW state that both packages compute in float32 whatever the
+    parameters' type (`jnp.float32`, `torch.float32` and `Tensor.float`
+    read as float64, `jax_enable_x64` on).  The gap then falls to float64
+    rounding (measured: losses 4.2e-16, grad norms 2.6e-15 at step 1 and
+    1.2e-12 at step 3, parameters 6.6e-9 of a leaf's norm, the QKV
+    biases), so the float32 gap is rounding that AdamW's normalised step
+    grows, not a difference in what the port computes."""
+    monkeypatch.setattr(jnp, "float32", jnp.float64)
+    monkeypatch.setattr(torch, "float32", torch.float64)
+    monkeypatch.setattr(torch.Tensor, "float",
+                        lambda self, *a, **k: self.to(torch.float64))
+    with jax.enable_x64(True):
+        jr, tr = _runs("qwen", "mixed", False, 2)
+        jplan, tplan = _plans("mixed")
+        jb, tb = jbuild(jr, jplan), tbuild(tr, tplan)
+        opt = dict(lr=1e-3)
+        sched = dict(warmup=2, total_steps=10)
+        jstep, _ = jmake_train_step(jb, JAdamWConfig(**opt), donate=False,
+                                    **sched)
+        jp = {k: v.astype(jnp.float64) for k, v in
+              jb.init(jax.random.PRNGKey(0)).items()}
+        jst = jinit_state(jp)
+        assert {str(v.dtype) for v in jax.tree.leaves(jst)} == {"float64",
+                                                                "int32"}
+        start = _tparams(jp)
+        ds = JDataset(jr.model, jr.shape, seed=0)
+        jlosses, jnorms = [], []
+        for s in range(3):
+            batch = {k: jnp.asarray(v) for k, v in
+                     ds.global_batch(s).items()}
+            jp, jst, m = jstep(jp, jst, batch)
+            jlosses.append(float(m["loss"]))
+            jnorms.append(float(m["grad_norm"]))
+        jp = {k: np.asarray(v) for k, v in jp.items()}
+    res = ttrain(tb, 3, opt_cfg=AdamWConfig(**opt), device="cpu",
+                 params=start, log_every=0, **sched)
+    assert {t.dtype for t in res.params.values()} == {torch.float64}
+    np.testing.assert_allclose(res.losses, jlosses, rtol=1e-13)
+    np.testing.assert_allclose(res.grad_norms, jnorms, rtol=1e-10)
+    for k, want in jp.items():
+        got = res.params[k].detach().numpy()
+        assert np.linalg.norm(got - want) <= 1e-7 * np.linalg.norm(want), k
 
 
 def test_microbatched_grads_average_the_halves():
