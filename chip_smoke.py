@@ -1123,7 +1123,7 @@ def check_matmul_grad(torch, role, M, K, N, gen, transpose_w=False):
     else:
         x, dy = r(M, K), r(M, N, scale=M ** -0.5)
         a, b = (dy, x) if transpose_w else (x, dy)
-        plan = sm.plan_for(a, b, sm.BWD_KSLICE, "tn")
+        plan = sm.plan_for(a, b, sm.BWD_KSLICE, "tn", role="wgrad")
         got = sm.split_matmul_wgrad(x, dy, transpose_w=transpose_w)
         want = ref.split_matmul_splitk_ref(a.t(), b, plan.kslice,
                                            plan.k_ranges(M))
@@ -1153,15 +1153,23 @@ def check_matmul_grad(torch, role, M, K, N, gen, transpose_w=False):
 
 def check_persistent_spills() -> list:
     """`-Xptxas -v`'s line for each of `split_matmul`'s persistent
-    kernels; fails on a register spill (or when ptxas reported none)."""
+    kernels; fails on a register spill, or when an instantiation the C
+    entry launches is missing: each bn in each layout (NN, NT, TN) with
+    bf16 out and with fp32 partials, and the accumulating form at bn
+    128."""
     import re
     from repro_torch.kernels import _lib
+    from repro_torch.kernels import split_matmul as sm
     ptx = [ln for ln in _ptxas(_lib.build_log) if "persistent" in ln]
     spills = [ln for ln in ptx if any(int(v) for v in re.findall(
         r"(\d+) bytes spill (?:stores|loads)", ln))]
-    if not ptx or spills:
-        _fail(f"split_matmul persistent kernels spill registers (or ptxas "
-              f"reported none): {spills or ptx}")
+    want = [f"<{bn}, {layout}, {out}>" for bn in sm.PERSISTENT_BNS
+            for layout in sm.LAYOUTS.values() for out in (0, 1)]
+    want.append("<128, 0, 2>")
+    missing = [w for w in want if not any(w + ":" in ln for ln in ptx)]
+    if missing or spills:
+        _fail(f"split_matmul persistent kernels spill registers, or ptxas "
+              f"reported no line for {missing}: {spills or ptx}")
     return ptx
 
 
@@ -1314,7 +1322,7 @@ MATMUL_GRAD_CASES = (
     ("dgrad", 5, 37, 19, False, "general", "odd sizes: the strided kernel"),
     ("wgrad", 5, 37, 19, False, "general", "odd sizes: the strided kernel"),
     ("dgrad", 200, 64, 264, True, "persistent", "a transposed weight"),
-    ("wgrad", 200, 64, 264, True, "wgmma", "a transposed weight"),
+    ("wgrad", 200, 64, 264, True, "persistent", "a transposed weight"),
     ("dgrad", 2000, 1000, 1024, False, "persistent",
      "a ragged last row tile, K 1000 not a multiple of bn"),
     ("dgrad", 33000, 704, 1024, False, "persistent",
@@ -1327,49 +1335,72 @@ MATMUL_GRAD_CASES = (
      "the tied head's layout (nn), split-K"),
     ("dgrad", 8192, 1152, 192, False, "persistent",
      "bn 192 (3 staging chunks a tile), 3 k-steps, about 3 tiles a block"),
+    ("wgrad", 4000, 1024, 1024, False, "persistent",
+     "contracted rows 4000, not a multiple of 64"),
+    ("wgrad", 4096, 704, 1024, False, "persistent",
+     "output rows 704, ragged against 128"),
+    ("wgrad", 512, 8, 1024, False, "persistent",
+     "output rows 8, one box of x^T mostly outside"),
+    ("wgrad", 32768, 256, 512, False, "persistent",
+     "split-K, fewer tiles than SMs"),
+    ("wgrad", 4096, 1024, 8192, True, "persistent",
+     "the tied head's form dy^T x, ragged tiles against 128 x 256"),
 )
 
 
 # (M, N, K) of out = A(M, K) . B at which the persistent kernel is run at
-# each tile width through its C entry: one k-step a tile and 768 tiles of
-# bn 192 on 132 blocks, so a staging buffer rewritten before its store
-# has read it shows (the plan takes bn 192 at no such K)
+# each tile width through its C entry: one k-step a tile (a split) and
+# 768 tiles of bn 192 on 132 blocks, so a staging buffer rewritten before
+# its store has read it shows (the plan takes bn 192 at no such K)
 PERSISTENT_SWEEP = (32768, 576, 64)
 
 
-def check_persistent_widths(torch, gen) -> tuple:
-    """The persistent kernel at each bn it is built for, in both
-    layouts, at PERSISTENT_SWEEP, against the fp32 product, each call
-    repeated bit-identically; returns the bns."""
+def check_persistent_widths(torch, gen) -> list:
+    """The persistent kernel at each bn it is built for, in each layout,
+    with one split (bf16 out) and with two (fp32 partials, then the
+    reduce), at PERSISTENT_SWEEP, against the fp32 product, each call
+    repeated bit-identically; returns the (layout, bn, splits) run."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels import split_matmul as sm
-    M, N, K = PERSISTENT_SWEEP
+    M, N, k_step = PERSISTENT_SWEEP
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     tiles_m = math.ceil(M / sm.WGMMA_BM)
-    for layout in ("nt", "nn"):
-        a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
-        b = torch.randn(*((N, K) if layout == "nt" else (K, N)),
-                        generator=gen, device="cuda").bfloat16()
-        want = a.float() @ (b.float().t() if layout == "nt" else b.float())
-        for bn in sm.PERSISTENT_BNS:
-            tiles_n = math.ceil(N / bn)
-            blocks = min(n_sm, tiles_m * tiles_n)
-            group = max(1, min(tiles_m, blocks // tiles_n))
+    ran = []
+    for layout in ("nt", "nn", "tn"):
+        for splits in (1, 2):
+            K = k_step * splits
+            r = lambda *s: torch.randn(*s, generator=gen,
+                                       device="cuda").bfloat16()
+            a = r(*((K, M) if layout == "tn" else (M, K)))
+            b = r(*((N, K) if layout == "nt" else (K, N)))
+            want = (a.float().t() if layout == "tn" else a.float()) @ (
+                b.float().t() if layout == "nt" else b.float())
+            ws = (torch.empty(splits, M, N, device="cuda") if splits > 1
+                  else None)
+            for bn in sm.PERSISTENT_BNS:
+                tiles_n = math.ceil(N / bn)
+                blocks = min(n_sm, tiles_m * tiles_n * splits)
+                group = max(1, min(tiles_m, blocks // tiles_n))
 
-            def call():
-                y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
-                _lib.check(_lib.lib().split_matmul_persistent_bf16(
-                    a.data_ptr(), b.data_ptr(), y.data_ptr(), None, None,
-                    sm.LAYOUTS[layout], M, N, K, K, bn, 1, 1, blocks, group,
-                    _lib.stream_of(a)), "split_matmul_persistent_bf16")
-                return y
-            what = (f"persistent kernel {layout} bn {bn} at {M}x{N}x{K} "
-                    f"({blocks} blocks, group {group})")
-            got = call()
-            _grad_err(torch, got, want, what)
-            if not torch.equal(got, call()):
-                _fail(f"{what}: two calls on the same inputs differ")
-    return sm.PERSISTENT_BNS
+                def call():
+                    y = torch.empty(M, N, dtype=torch.bfloat16,
+                                    device="cuda")
+                    _lib.check(_lib.lib().split_matmul_persistent_bf16(
+                        a.data_ptr(), b.data_ptr(), y.data_ptr(),
+                        ws.data_ptr() if ws is not None else None, None,
+                        sm.LAYOUTS[layout], M, N, K, k_step, bn, splits, 1,
+                        blocks, group, _lib.stream_of(a)),
+                        "split_matmul_persistent_bf16")
+                    return y
+                what = (f"persistent kernel {layout} bn {bn} x {splits} "
+                        f"splits at {M}x{N}x{K} ({blocks} blocks, group "
+                        f"{group})")
+                got = call()
+                _grad_err(torch, got, want, what)
+                if not torch.equal(got, call()):
+                    _fail(f"{what}: two calls on the same inputs differ")
+                ran.append((layout, bn, splits))
+    return ran
 
 
 def check_backward_options(torch, gen) -> int:
@@ -1634,6 +1665,18 @@ def _want_train_launches(built, steps, S) -> tuple:
     return want, layouts
 
 
+def _check_persistent_roles(variants: dict, what: str) -> None:
+    """Fails unless every accumulating, dgrad and wgrad launch counted in
+    `variants` (`ops.split_matmul_variant_counts()`, "role:design") took
+    the persistent design: at the training shapes (rows > 64, bf16)
+    nothing else is planned for them."""
+    off = {k: n for k, n in variants.items() if k.split(":")[0] in
+           ("acc", "dgrad", "wgrad") and k.split(":")[1] != "persistent"}
+    if off:
+        _fail(f"{what}: acc, dgrad or wgrad launches off the persistent "
+              f"design: {off} (all by design: {variants})")
+
+
 def _want_product_counts(built, steps) -> dict:
     """Tagged products computed in `steps` steps, by tag: once a layer in
     the forward, and again unless the layer's remat keeps the tag."""
@@ -1717,13 +1760,7 @@ def train_phase(torch, args) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(math.isfinite(x) for x in res.losses):
         _fail(f"train: non-finite loss {res.losses}")
-    # the accumulating form (rows > 64 here) and dgrad: the persistent
-    # design only
-    off = {k: n for k, n in variants.items() if k.split(":")[0] in
-           ("acc", "dgrad") and k.split(":")[1] != "persistent"}
-    if off:
-        _fail(f"train: acc or dgrad launches off the persistent design: "
-              f"{off} (all by design: {variants})")
+    _check_persistent_roles(variants, "train")
     want, want_layouts = _want_train_launches(built, TRAIN_STEPS, S)
     for name, n in want.items():
         if counts[name] != n:
@@ -1824,6 +1861,8 @@ def _train_run(torch, built, steps, params, seed, what, S,
     res = train(built, steps, seed=seed, warmup=1, device="cuda",
                 params=params, log_every=0)
     counts, products = ops.launch_counts(), dict(ops.product_counts)
+    _check_persistent_roles(ops.split_matmul_variant_counts(),
+                            f"train {what}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     want, _ = _want_train_launches(built, steps, S)
     want_p = _want_product_counts(built, steps)
@@ -2090,6 +2129,8 @@ def _run_steps(torch, built, params, steps, seed, keep=False) -> dict:
         mesh.reset_counts()
     res = train(built, steps, seed=seed, warmup=1, device="cuda",
                 params=params, log_every=0, print_fn=lambda *a: None)
+    _check_persistent_roles(ops.split_matmul_variant_counts(),
+                            "sharded train")
     steady = sorted(res.step_ms[1:]) or res.step_ms
     out = dict(losses=res.losses, grad_norms=res.grad_norms,
                step_ms=res.step_ms, median_step_ms=steady[len(steady) // 2],
@@ -2392,6 +2433,7 @@ def calibrate_phase(torch, args, serves, trained) -> dict:
     t_plain, t_remat = bench.remat_sweep(depth, width, batch,
                                          CALIBRATE_REPEATS, "cuda")
     counts = ops.launch_counts()
+    _check_persistent_roles(ops.split_matmul_variant_counts(), "calibrate")
     sweep_s = time.perf_counter() - t0
     calls = 1 + CALIBRATE_REPEATS          # a warm-up, then the repeats
     want = dict.fromkeys(counts, 0)
@@ -2510,6 +2552,7 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _lib
+    from repro_torch.kernels import split_matmul as sm
 
     report: dict = {"card": _card(),
                     "device": torch.cuda.get_device_name(0)}
@@ -2670,11 +2713,12 @@ def main(argv=None) -> int:
           + "; ".join(c[-1] for c in MATMUL_GRAD_CASES) + ", bf16 and f32)"
           " agree with the plain versions; every repeated backward "
           "bit-identical")
-    bns = check_persistent_widths(torch, gen)
-    print(f"  persistent kernel: {2 * len(bns)} calls (bn "
-          f"{', '.join(map(str, bns))}; nt and nn) at "
-          f"{PERSISTENT_SWEEP}, one k-step a tile, agree with the fp32 "
-          f"product and repeat bit-identically")
+    ran = check_persistent_widths(torch, gen)
+    print(f"  persistent kernel: {2 * len(ran)} calls (bn "
+          f"{', '.join(map(str, sm.PERSISTENT_BNS))}; nt, nn and tn; one "
+          f"split and 2 through fp32 partials) at {PERSISTENT_SWEEP}, one "
+          f"k-step a tile a split, agree with the fp32 product and repeat "
+          f"bit-identically")
     torch.cuda.empty_cache()
 
     # 3-4. serve each model, then its whole-model logits ----------------------

@@ -47,10 +47,10 @@
 //     from memory once.  All slices of a block's K range add into the
 //     same fp32 registers; split-K (as in (a)) where the tiles alone
 //     leave SMs idle.
-// (d) "persistent", the accumulating form and dgrad at prefill rows: (b)'s
-//     roles and tiles in one block a SM that walks output tiles in a
-//     grouped raster, its epilogue through shared memory and TMA stores
-//     (below, before the split-K reduction).
+// (d) "persistent", the accumulating form, dgrad and wgrad at prefill
+//     rows: (b)'s roles and tiles in one block a SM that walks output
+//     tiles in a grouped raster, its epilogue through shared memory and
+//     TMA stores (below, before the split-K reduction).
 // (c) "general", the first version (64x64 tiles, WMMA, no pipeline),
 //     kept for what (a), (b) and (d) cannot take: K or N not a multiple of 8
 //     (TMA and 16-byte copies need 16-byte row strides) or a base pointer
@@ -58,15 +58,15 @@
 //     (no TF32).
 //
 // Training.  The TPU kernel has no backward (the JAX package trains through
-// its jnp twin, x @ w), so the backward is new here: design (b) in two more
+// its jnp twin, x @ w), so the backward is new here: design (d) in two more
 // operand layouts (`Layout` below), dgrad dx = dy w^T ("NT", w read as
 // stored, the transpose in the load) and wgrad dw = x^T dy ("TN",
-// contracted over the rows); the tied head's forward x emb^T is NT too, so
-// the embedding is never copied transposed.  What bounds them at
-// qwen1.5-0.5b's training shapes (B*S = 32768 rows, bf16): operations.  A
-// layer's six products are 2 * 32768 * (4 * 1024^2 + 1024 * 5632 + 2816 *
-// 1024) = 829 GFLOP for each of forward, dgrad and wgrad, 0.84 ms at
-// 989 TFLOP/s; w13's dgrad (32768 x 5632 -> 1024) is 378 GFLOP, 0.382 ms,
+// contracted over the rows); the tied head's forward x emb^T is NT too
+// (design (b)), so the embedding is never copied transposed.  What bounds
+// them at qwen1.5-0.5b's training shapes (B*S = 32768 rows, bf16):
+// operations.  A layer's six products are 2 * 32768 * (4 * 1024^2 + 1024
+// * 5632 + 2816 * 1024) = 829 GFLOP for each of forward, dgrad and
+// wgrad, 0.84 ms at 989 TFLOP/s; w13's dgrad (32768 x 5632 -> 1024) is 378 GFLOP, 0.382 ms,
 // against 448 MB of bytes, 0.134 ms.  A dimension not a multiple of 8, a
 // misaligned pointer or float32 takes a strided CUDA-core kernel instead.
 //
@@ -495,7 +495,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
     uint8_t* a = smem + stage * STAGE_BYTES;
     int k0, lo, hi;
     st.at(i, k0, lo, hi);
-    // zero x outside the slice (NN only: the NT and TN wrappers cut K at
+    // zero x outside the slice (NN only: the NT wrapper cuts K at
     // multiples of KSTEP, so only the tensor's end is ragged, where TMA
     // fills zeros)
     if (L == NN && (lo > 0 || hi < min(KSTEP, K - k0))) {
@@ -513,16 +513,14 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full,
     }
     // K-major tiles advance 32 bytes a k16 step within their 128-byte
     // rows; MN-major ones 16 rows of 128 bytes, their 64-wide boxes
-    // B_BOX apart.  Each warpgroup's A is 64 rows: 8 KB either way.
+    // B_BOX apart.  Each warpgroup's A is 64 rows: 8 KB.
     const uint32_t a_addr = smem_u32(a) + wg * 64 * 128;
     const uint32_t b_addr = smem_u32(a + A_BYTES);
     fence_regs(d);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KSTEP / 16; ++kk) {
-      const uint64_t da =
-          L == TN ? wgmma_desc_sw128(a_addr + kk * 16 * 128, B_BOX, 1024)
-                  : wgmma_desc_sw128(a_addr + kk * 32, 16, 1024);
+      const uint64_t da = wgmma_desc_sw128(a_addr + kk * 32, 16, 1024);
       const uint64_t db =
           L == NT ? wgmma_desc_sw128(b_addr + kk * 32, 16, 1024)
                   : wgmma_desc_sw128(b_addr + kk * 16 * 128, B_BOX, 1024);
@@ -617,12 +615,7 @@ split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         st.at(i, k0, lo, hi);
         uint8_t* a = smem + stage * STAGE_BYTES;
         mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
-        if (L == TN) {               // two 64-column boxes of x^T
-          tma_load_2d(a, &tx, &full[stage], m0, k0);
-          tma_load_2d(a + B_BOX, &tx, &full[stage], m0 + 64, k0);
-        } else {
-          tma_load_2d(a, &tx, &full[stage], k0, m0);
-        }
+        tma_load_2d(a, &tx, &full[stage], k0, m0);
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j) {
           if (L == NT)               // 64 rows of w, K-major
@@ -647,13 +640,15 @@ split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 // --- (d) "persistent": the accumulating form and dgrad at prefill rows -----
 //
 // At 32,768 rows the row operand is the large one (dy 64 MiB, a w2 chunk's
-// hidden 44 MiB, both above the 50 MB L2) and the epilogue is heavy (the
-// accumulating form reads and writes 8 bytes an output element against
-// K = 704).  Design (b) pays for both: its grid runs row tiles fastest,
-// so x is streamed once per column tile, and each block writes its tile
-// from registers, then exits with its ring empty.  On the card that
-// epilogue took 0.25 of 0.34 ms at the accumulating w2 chunk and 0.056
-// of 0.167 ms at the attention dgrad (tools/split_matmul_phases.py).
+// hidden 44 MiB, both above the 50 MB L2; the tied head's wgrad reads dy^T
+// of a CE chunk, 1.25 GB) and the epilogue is heavy (the accumulating form
+// reads and writes 8 bytes an output element against K = 704; wgrad at
+// the calibration chain writes a 64 KB tile after one k-step).  Design (b)
+// pays for both: its grid runs row tiles fastest, so x is streamed once
+// per column tile, and each block writes its tile from registers, then
+// exits with its ring empty.  On the card that epilogue took 0.25 of 0.34
+// ms at the accumulating w2 chunk and 0.056 of 0.167 ms at the attention
+// dgrad (tools/split_matmul_phases.py).
 //
 // Here one block a SM (the grid is the plan's `blocks`, the device's SM
 // count or fewer) walks output tiles t = blockIdx.x, + gridDim.x, ... in
@@ -664,14 +659,16 @@ split_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 // roles are (b)'s: one TMA producer thread, two consumer warpgroups of
 // 64 rows each with wgmma, registers moved by setmaxnreg.  The producer's
 // ring runs across tile boundaries, so the next tile's loads fill while
-// the consumers finish the last.  The consumers write their sums 64
-// columns at a time into two staging buffers in shared memory (128-byte
-// swizzled boxes of 64 rows), and one thread of each warpgroup sends each
-// chunk out with a TMA store that drains while the next chunk is written
-// and the next tile's products run; the buffers alternate chunk by chunk
-// across tiles, and a buffer is rewritten once its store two chunks back
-// has left it.  Two 64-column buffers instead of a whole output tile
-// leave room for a 4th ring stage at bn 256.  In the
+// the consumers finish the last.  The consumers write their sums one
+// 128-byte box at a time (64 bf16 or 32 fp32 columns) into two staging
+// buffers in shared memory (128-byte swizzled boxes of 64 rows), and one
+// thread of each warpgroup sends each chunk out with a TMA store that
+// drains while the next chunk is written and the next tile's products
+// run; the buffers alternate chunk by chunk across tiles, and a buffer is
+// rewritten once its store two chunks back has left it.  Two one-box
+// buffers (32 KB) instead of a whole output tile leave room for a 4th
+// ring stage at bn 256, split-K's fp32 partials included.  In TN the A
+// tile is two 64-row boxes of x^T, MN-major, as NN's B.  In the
 // accumulating form the staging area holds the tile of `acc` instead:
 // the producer TMA-loads it during the mainloop, as soon as the
 // consumers have read the last one (barrier `acc_empty`), and the
@@ -701,10 +698,10 @@ struct Ps {
   static constexpr int ESIZE = OUT == OUT_BF16 ? 2 : 4;
   static constexpr int BOX_W = 128 / ESIZE;          // columns a box
   static constexpr int BOXES = BN / BOX_W;           // boxes a 64-row half
-  static constexpr int CHUNK_BOXES = 64 / BOX_W;     // boxes a 64-column chunk
-  // the acc tile, or two 64-column staging buffers of 128 rows
+  // the acc tile, or two staging buffers of 128 rows by one box (64
+  // bf16 or 32 fp32 columns), 32 KB either way
   static constexpr int C_BYTES =
-      OUT == OUT_ACC ? WG_BM * BN * ESIZE : 2 * WG_BM * 64 * ESIZE;
+      OUT == OUT_ACC ? WG_BM * BN * ESIZE : 2 * WG_BM * 128;
   static constexpr int FIT = (SMEM_LIMIT - 1024 - C_BYTES - 256) / STAGE_BYTES;
   static constexpr int STAGES = FIT < 8 ? FIT : 8;
   static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + C_BYTES + 256;
@@ -735,6 +732,21 @@ struct TileOrder {
     nt = rr / gm;
   }
 };
+
+// The producer's A tile of a stage: in NN and NT a (128 rows, 64 of K)
+// box of x (M, K); in TN, x stored (K, M), two (64 of K, 64 rows) boxes
+// of x^T, one for each consumer warpgroup, as B's boxes load in NN
+template <int L>
+__device__ __forceinline__ void load_a(uint8_t* a, const CUtensorMap* tx,
+                                       uint64_t* bar, int k0, int m0) {
+  using namespace hopper;
+  if constexpr (L == TN) {
+    tma_load_2d(a, tx, bar, m0, k0);
+    tma_load_2d(a + B_BOX, tx, bar, m0 + 64, k0);
+  } else {
+    tma_load_2d(a, tx, bar, k0, m0);
+  }
+}
 
 template <int BN, int L, int OUT>
 __global__ void __launch_bounds__(384, 1)
@@ -802,7 +814,7 @@ split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
           st.at(i, k0, lo, hi);
           uint8_t* a = smem + stage * P::STAGE_BYTES;
           mbar_arrive_expect_tx(&full[stage], P::STAGE_BYTES);
-          tma_load_2d(a, &tx, &full[stage], k0, m0);
+          load_a<L>(a, &tx, &full[stage], k0, m0);
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j) {
             if (L == NT)             // 64 rows of w, K-major
@@ -824,13 +836,15 @@ split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
   }
 
   setmaxnreg_inc<232>();
-  // shared memory by 32-bit address: no 64-bit pointer stays live beside
-  // the sums
+  // shared memory by 32-bit address from one base: no 64-bit pointer and
+  // no second address stays live beside the sums (with three, bn 256
+  // spilled a register)
   const int t128 = tid % 128;
   const int lane = t128 & 31;
   const uint32_t ring = smem_u32(smem);
-  const uint32_t full_s = smem_u32(full), empty_s = smem_u32(empty);
-  const uint32_t cwg = smem_u32(ctile) + wg * P::CHUNK_BOXES * C_BOX;
+  // the staging buffers and the barriers lie at fixed offsets from it
+  constexpr uint32_t CTILE = STAGES * P::STAGE_BYTES;
+  constexpr uint32_t FULL = CTILE + P::C_BYTES, EMPTY = FULL + 8 * STAGES;
   // the sums' layout: warp w4 of the group holds rows 16 w4 + (lane/4)
   // and + 8 of its half; n-chunk j holds columns 8 j + 2 (lane % 4) and
   // + 1.  In a box, 16-byte chunk c of row r sits at chunk c ^ (r % 8)
@@ -851,14 +865,19 @@ split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
     }
     int prev = -1;
     for (int i = 0; i < n_steps; ++i) {
-      mbar_wait(full_s + 8 * stage, phase);
+      mbar_wait(ring + FULL + 8 * stage, phase);
       const uint32_t a_addr = ring + stage * P::STAGE_BYTES + wg * 64 * 128;
       const uint32_t b_addr = ring + stage * P::STAGE_BYTES + A_BYTES;
       fence_regs(d);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTEP / 16; ++kk) {
-        const uint64_t da = wgmma_desc_sw128(a_addr + kk * 32, 16, 1024);
+        // K-major tiles advance 32 bytes a k16 step within their 128-byte
+        // rows; MN-major ones (TN's A, NN's and TN's B) 16 rows of 128
+        // bytes, their 64-wide boxes B_BOX apart
+        const uint64_t da =
+            L == TN ? wgmma_desc_sw128(a_addr + kk * 16 * 128, B_BOX, 1024)
+                    : wgmma_desc_sw128(a_addr + kk * 32, 16, 1024);
         const uint64_t db =
             L == NT ? wgmma_desc_sw128(b_addr + kk * 32, 16, 1024)
                     : wgmma_desc_sw128(b_addr + kk * 16 * 128, B_BOX, 1024);
@@ -869,7 +888,7 @@ split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
       // done, so its stage goes back to the producer
       wgmma_wait<1>();
       fence_regs(d);
-      if (prev >= 0 && t128 == 0) mbar_arrive(empty_s + 8 * prev);
+      if (prev >= 0 && t128 == 0) mbar_arrive(ring + EMPTY + 8 * prev);
       prev = stage;
       if (++stage == STAGES) {
         stage = 0;
@@ -878,7 +897,7 @@ split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
     }
     wgmma_wait<0>();
     fence_regs(d);
-    if (prev >= 0 && t128 == 0) mbar_arrive(empty_s + 8 * prev);
+    if (prev >= 0 && t128 == 0) mbar_arrive(ring + EMPTY + 8 * prev);
     if (n_steps == 0) {             // an empty K range adds nothing
 #pragma unroll
       for (int j = 0; j < BN / 2; ++j) d[j] = 0.0f;
@@ -912,17 +931,18 @@ split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
       if (t128 == 0) mbar_arrive(acc_empty);    // this half was read
     } else {
 #pragma unroll
-      for (int c = 0; c < BN / 64; ++c) {
-        // the buffers alternate chunk by chunk across tiles (a tile of
-        // bn 192 has 3 chunks), so this one's store is two chunks back
-        // and bulk_wait_read<1> sees it leave
-        const uint32_t cb = cwg + buf * 2 * P::CHUNK_BOXES * C_BOX;
+      for (int c = 0; c < P::BOXES; ++c) {
+        // one box (64 bf16 or 32 fp32 columns) a chunk; the buffers
+        // alternate chunk by chunk across tiles (a tile of bn 192 has 3
+        // bf16 chunks), so this one's store is two chunks back and
+        // bulk_wait_read<1> sees it leave
+        const uint32_t cb = ring + CTILE + (wg + 2 * buf) * C_BOX;
         buf ^= 1;
         if (t128 == 0) bulk_wait_read<1>();
         named_bar_sync(1 + wg, 128);
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int j = 8 * c + jj, col = 8 * jj + 2 * (lane & 3);
+        for (int jj = 0; jj < P::BOX_W / 8; ++jj) {
+          const int j = P::BOX_W / 8 * c + jj, col = 8 * jj + 2 * (lane & 3);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = r0 + 8 * h;
@@ -931,10 +951,9 @@ split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
               st_shared(cb + r * 128 + (((col >> 3) ^ (r & 7)) << 4) +
                             (col & 7) * 2,
                         pack_bf16(v0, v1));
-            } else {
-              const int cc = col % 32;
-              st_shared(cb + (col / 32) * C_BOX + r * 128 +
-                            (((cc >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4,
+            } else {                // col < 32: one box
+              st_shared(cb + r * 128 + (((col >> 2) ^ (r & 7)) << 4) +
+                            (col & 3) * 4,
                         v0, v1);
             }
           }
@@ -942,10 +961,8 @@ split_matmul_persistent_kernel(const __grid_constant__ CUtensorMap tx,
         fence_proxy_async();
         named_bar_sync(1 + wg, 128);
         if (t128 == 0) {
-#pragma unroll
-          for (int b = 0; b < P::CHUNK_BOXES; ++b)
-            tma_store_3d(&ty, cb + b * C_BOX, n0 + 64 * c + b * P::BOX_W,
-                         m0 + 64 * wg, OUT == OUT_F32 ? split : 0);
+          tma_store_3d(&ty, cb, n0 + P::BOX_W * c, m0 + 64 * wg,
+                       OUT == OUT_F32 ? split : 0);
           bulk_commit();
         }
       }
@@ -1061,15 +1078,14 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// out (M, N) = A (M, K) . B (K, N) in layout L: x is A as stored ((M, K),
-// or (K, M) for TN), w is B as stored ((K, N), or (N, K) for NT)
+// out (M, N) = x (M, K) . B (K, N) in layout L (NN or NT): w is B as
+// stored ((K, N), or (N, K) for NT)
 template <int BN, int L>
 int launch_wgmma(const void* x, const void* w, void* y, float* ws, int M,
                  int N, int K, int kslice, int splits, int sps,
                  cudaStream_t stream) {
   CUtensorMap tx, tw;
-  const bool ok_x = L == TN ? tensor_map(&tx, x, M, K, 64, KSTEP)
-                            : tensor_map(&tx, x, K, M, KSTEP, WG_BM);
+  const bool ok_x = tensor_map(&tx, x, K, M, KSTEP, WG_BM);
   const bool ok_w = L == NT ? tensor_map(&tw, w, K, N, KSTEP, 64)
                             : tensor_map(&tw, w, N, K, 64, KSTEP);
   if (!ok_x || !ok_w) return (int)cudaErrorInvalidValue;
@@ -1108,8 +1124,9 @@ bool out_map(CUtensorMap* map, const void* ptr, bool f32, int N, int M,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// out (M, N) = x (M, K) . w in layout L (NN: w (K, N); NT: w (N, K)) into
-// `out`: bf16 y, fp32 partials (S = splits, M, N), or the fp32 acc + x . w
+// out (M, N) = A (M, K) . B (K, N) in layout L into `out`: bf16 y, fp32
+// partials (S = splits, M, N), or the fp32 acc + x . w.  x is A as stored
+// ((M, K), or (K, M) for TN), w is B as stored ((K, N), or (N, K) for NT)
 template <int BN, int L, int OUT>
 int launch_persistent(const void* x, const void* w, void* out,
                       const float* acc, int M, int N, int K, int kslice,
@@ -1118,7 +1135,8 @@ int launch_persistent(const void* x, const void* w, void* out,
   using P = Ps<BN, OUT>;
   CUtensorMap tx, tw, ty, tacc;
   const bool ok =
-      tensor_map(&tx, x, K, M, KSTEP, WG_BM) &&
+      (L == TN ? tensor_map(&tx, x, M, K, 64, KSTEP)
+               : tensor_map(&tx, x, K, M, KSTEP, WG_BM)) &&
       (L == NT ? tensor_map(&tw, w, K, N, KSTEP, 64)
                : tensor_map(&tw, w, N, K, 64, KSTEP)) &&
       (OUT == OUT_ACC ? out_map(&tacc, acc, true, N, M, 1)
@@ -1248,10 +1266,10 @@ extern "C" int split_matmul_stream_bf16(const void* x, const void* w, void* y,
   return launch_reduce(wsf, y, af, M, N, splits, st);
 }
 
-// layout 0 = NN (x (M,K) . w (K,N)), 1 = NT (x (M,K) . w^T, w stored
-// (N,K)), 2 = TN (x^T . w, x stored (K,M), w (K,N)); bf16 out (M, N).
-// NT and TN need kslice % 64 == 0 (the wrapper's plan gives it).  The
-// accumulating form at these rows is the persistent design's, below.
+// layout 0 = NN (x (M,K) . w (K,N)) or 1 = NT (x (M,K) . w^T, w stored
+// (N,K)); bf16 out (M, N).  NT needs kslice % 64 == 0 (the wrapper's
+// plan gives it).  The accumulating form, dgrad and wgrad (layout 2) at
+// these rows are the persistent design's, below.
 extern "C" int split_matmul_wgmma_bf16(const void* x, const void* w, void* y,
                                        void* ws, int layout, int M, int N,
                                        int K, int kslice, int bn, int splits,
@@ -1262,18 +1280,17 @@ extern "C" int split_matmul_wgmma_bf16(const void* x, const void* w, void* y,
   int rc;
   if (layout == NN) rc = launch_wgmma_bn<NN>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
   else if (layout == NT) rc = launch_wgmma_bn<NT>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
-  else if (layout == TN) rc = launch_wgmma_bn<TN>(x, w, y, wsf, M, N, K, kslice, bn, splits, sps, st);
   else return (int)cudaErrorInvalidValue;
   if (rc != 0 || splits <= 1) return rc;
   return launch_reduce(wsf, y, nullptr, M, N, splits, st);
 }
 
-// (d): layout 0 = NN or 1 = NT as for (b), bn in {128, 192, 256} (128
-// with acc and one split), kslice a multiple of 64 or all of K; the
-// grid is `blocks` persistent blocks walking the tiles in groups of
-// `group` row tiles (`TileOrder`).  With splits > 1 the partials go to
-// `ws` and the reduce sums them (adding `acc`); else with `acc` (NN only)
-// y is the fp32 acc + x @ w, else bf16.
+// (d): layout 0 = NN, 1 = NT or 2 = TN (x^T . w, x stored (K, M), w
+// (K, N)), bn in {128, 192, 256} (128 with acc and one split), kslice a
+// multiple of 64 or all of K; the grid is `blocks` persistent blocks
+// walking the tiles in groups of `group` row tiles (`TileOrder`).  With
+// splits > 1 the partials go to `ws` and the reduce sums them (adding
+// `acc`); else with `acc` (NN only) y is the fp32 acc + x @ w, else bf16.
 extern "C" int split_matmul_persistent_bf16(const void* x, const void* w,
                                             void* y, void* ws,
                                             const void* acc, int layout,
@@ -1284,14 +1301,14 @@ extern "C" int split_matmul_persistent_bf16(const void* x, const void* w,
   cudaStream_t st = (cudaStream_t)stream;
   float* wsf = (float*)ws;
   const float* af = (const float*)acc;
-  if ((layout != NN && layout != NT) || (kslice % KSTEP && kslice < K) ||
-      (layout == NT && af) || blocks < 1 || group < 1 || (splits > 1 && !wsf))
+  if (layout < NN || layout > TN || (kslice % KSTEP && kslice < K) ||
+      (layout != NN && af) || blocks < 1 || group < 1 || (splits > 1 && !wsf))
     return (int)cudaErrorInvalidValue;
   int rc;
   if (splits > 1) {
-    rc = layout == NN
-             ? launch_persistent_bn<NN, OUT_F32>(x, w, wsf, nullptr, M, N, K, kslice, bn, splits, sps, blocks, group, st)
-             : launch_persistent_bn<NT, OUT_F32>(x, w, wsf, nullptr, M, N, K, kslice, bn, splits, sps, blocks, group, st);
+    rc = layout == NN ? launch_persistent_bn<NN, OUT_F32>(x, w, wsf, nullptr, M, N, K, kslice, bn, splits, sps, blocks, group, st)
+       : layout == NT ? launch_persistent_bn<NT, OUT_F32>(x, w, wsf, nullptr, M, N, K, kslice, bn, splits, sps, blocks, group, st)
+                      : launch_persistent_bn<TN, OUT_F32>(x, w, wsf, nullptr, M, N, K, kslice, bn, splits, sps, blocks, group, st);
     if (rc != 0) return rc;
     return launch_reduce(wsf, y, af, M, N, splits, st);
   }
@@ -1299,7 +1316,8 @@ extern "C" int split_matmul_persistent_bf16(const void* x, const void* w,
     return bn == 128 ? launch_persistent<128, NN, OUT_ACC>(x, w, y, af, M, N, K, kslice, 1, sps, blocks, group, st)
                      : (int)cudaErrorInvalidValue;
   if (layout == NN) return launch_persistent_bn<NN, OUT_BF16>(x, w, y, nullptr, M, N, K, kslice, bn, 1, sps, blocks, group, st);
-  return launch_persistent_bn<NT, OUT_BF16>(x, w, y, nullptr, M, N, K, kslice, bn, 1, sps, blocks, group, st);
+  if (layout == NT) return launch_persistent_bn<NT, OUT_BF16>(x, w, y, nullptr, M, N, K, kslice, bn, 1, sps, blocks, group, st);
+  return launch_persistent_bn<TN, OUT_BF16>(x, w, y, nullptr, M, N, K, kslice, bn, 1, sps, blocks, group, st);
 }
 
 // out (R, C) = A . B with A(r, k) = a[r sar + k sak], B(k, c) = b[k sbk +

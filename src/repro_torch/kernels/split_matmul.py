@@ -15,8 +15,8 @@ in-order sum of the splits.
 - ``"wgmma"`` (M > 64, prefill rows): TMA + wgmma, 128-row tiles of
   256/192/128/64 columns and split-K, whichever a cost model fitted on
   the card puts fastest;
-- ``"persistent"`` (the accumulating form at M > 64, and dgrad): the
-  wgmma design's roles and tiles in one block a SM that walks the output
+- ``"persistent"`` (the accumulating form at M > 64, dgrad and wgrad):
+  the wgmma design's roles and tiles in one block a SM that walks the output
   tiles in a grouped raster (`tile_order`), so a row tile's column tiles
   run together and its row operand is read from memory about once, with
   the epilogue staged through shared memory and TMA stores that drain
@@ -28,9 +28,9 @@ in-order sum of the splits.
   take (float32; K or N not a multiple of 8; a base pointer not 16-byte
   aligned), with the reason in the plan.
 
-The role (`ROLES`) picks between the two prefill designs: the forward,
-the tied head's forward and wgrad keep "wgmma"; the accumulating form
-and dgrad take "persistent", whose K slices are whole 64-wide k-steps
+The role (`ROLES`) picks between the two prefill designs: the forward
+and the tied head's forward keep "wgmma"; the accumulating form, dgrad
+and wgrad take "persistent", whose K slices are whole 64-wide k-steps
 or one slice of all of K (a `bk` that is not a multiple of 64 is planned
 as one slice of all of K: the same fp32 sum over K, in 64-wide steps).
 
@@ -52,11 +52,12 @@ fp32 sum into the fp32 tile of `acc` instead of casting it, so a
 chunked product (`core/operator_split`) sums its chunks in fp32 as the
 TPU kernel's K-slice accumulator does.
 
-"nt" and "tn" take the wgmma designs at every row count, with K cut at
-multiples of 64 (`BWD_KSLICE`, so only the tensor's end is ragged) and
-split-K where the tiles leave SMs idle; what they cannot take (float32,
-a dimension not a multiple of 8, a misaligned pointer) goes to a
-strided CUDA-core kernel (variant "general").
+"nt" and "tn" take the TMA designs at every row count ("tn", which only
+wgrad uses, the persistent one), with K cut at multiples of 64
+(`BWD_KSLICE`, so only the tensor's end is ragged) and split-K where the
+tiles leave SMs idle; what they cannot take (float32, a dimension not a
+multiple of 8, a misaligned pointer) goes to a strided CUDA-core kernel
+(variant "general").
 """
 from __future__ import annotations
 
@@ -91,6 +92,10 @@ SMEM_LIMIT = 232448    # dynamic shared memory a block may use
 MIN_STAGES = 4         # the persistent ring: with 3 its loads showed on the
                        # card (acc at bn 192: 0.168 ms; bn 128, 5 stages:
                        # 0.153)
+ITEM_S = 4e-6          # a persistent item's ring fill and drain and its
+                       # epilogue, beside its k-steps: fitted to a sweep of
+                       # wgrad's bn and splits on an H100 (3-8 us pick the
+                       # same plans)
 BWD_KSLICE = 512       # K unit of the "nt"/"tn" plans, a multiple of 64
 counts = {}            # (role, layout, variant) -> launches since the
                        # last reset (`ops.reset_launch_counts`)
@@ -129,11 +134,12 @@ class LaunchPlan:
 def persistent_smem(bn: int, out_bytes: int,
                     acc: bool = False) -> Tuple[int, int]:
     """(ring stages, shared memory bytes) of a persistent block whose
-    output of `out_bytes`-byte elements is staged in two 128 x 64 buffers
-    (with `acc`, the accumulating form: its 128 x bn fp32 acc tile), as
-    the kernel's `Ps` computes them."""
+    output is staged in two buffers of 128 rows by 128 bytes (64 bf16 or
+    32 fp32 columns; with `acc`, the accumulating form: its 128 x bn
+    fp32 acc tile, `out_bytes` an element), as the kernel's `Ps` computes
+    them."""
     stage = WGMMA_BM * 64 * 2 + bn // 64 * 64 * 64 * 2
-    tile = WGMMA_BM * (bn if acc else 2 * 64) * out_bytes
+    tile = WGMMA_BM * (bn * out_bytes if acc else 2 * 128)
     stages = min(8, (SMEM_LIMIT - 1024 - tile - 256) // stage)
     return stages, 1024 + stages * stage + tile + 256
 
@@ -235,7 +241,7 @@ def plan_launch(M: int, N: int, K: int, bk: int, *, n_sm: int = N_SM,
                     f"{math.ceil(N / bn) * n_slices} blocks, the most "
                     f"{n_slices} slices of {kslice} allow")
 
-    if role in ("acc", "dgrad") and layout != "tn":
+    if role != "fwd" or layout == "tn":
         if kslice % 64:     # whole k-steps, or one slice of all of K
             kslice, n_slices = K, 1
         return _plan_persistent(M, N, K, kslice, n_slices, n_sm, role,
@@ -268,12 +274,14 @@ def plan_launch(M: int, N: int, K: int, bk: int, *, n_sm: int = N_SM,
 def _plan_persistent(M, N, K, kslice, n_slices, n_sm, role, layout,
                      plan) -> LaunchPlan:
     """The persistent design's bn and split-K: the least estimated time,
-    the larger of the busiest block's steps (each bound by its products
-    or by taking in its tiles, as for "wgmma") and the device memory the
-    walk moves (`operand_bytes`, the output, `acc` and the split-K
-    workspace), plus with split-K the reduce's launch.  A tile of fp32
-    outputs leaves room for fewer stages: bn with fewer than MIN_STAGES
-    is not taken."""
+    the larger of the busiest block's items (each its k-steps, bound by
+    their products or by taking in their tiles as for "wgmma", and
+    ITEM_S) and the device memory the walk moves (`operand_bytes`, the
+    output or the split-K partials, `acc`), plus with split-K the
+    reduce: the partials read back, the output written, a launch.  A
+    ragged last row or column tile costs a whole tile's steps.  A tile
+    of fp32 outputs leaves room for fewer stages: bn with fewer than
+    MIN_STAGES is not taken."""
     out_bytes = 4 if role == "acc" else 2
     tiles_m = math.ceil(M / WGMMA_BM)
     best, best_cost = None, math.inf
@@ -295,14 +303,13 @@ def _plan_persistent(M, N, K, kslice, n_slices, n_sm, role, layout,
             steps = math.ceil(min(K, span) / 64)
             a_b, b_b = operand_bytes(M, N, K, bn, splits, span, blocks,
                                      group)
-            out = M * N * (8.0 * splits if splits > 1 else out_bytes)
-            mem = a_b + b_b + out + (4.0 * M * N if role == "acc" else 0)
+            acc_bytes = 4.0 * M * N if role == "acc" else 0.0
+            out = M * N * (4.0 * splits if splits > 1 else out_bytes)
+            cost = max(math.ceil(items / blocks) * (steps * step + ITEM_S),
+                       (a_b + b_b + out + acc_bytes) / HBM_BYTES)
             if splits > 1:          # the reduce reads the partials back
-                mem += 4.0 * splits * M * N + M * N * out_bytes
-            cost = max(math.ceil(items / blocks) * steps * step,
-                       mem / HBM_BYTES)
-            if splits > 1:
-                cost += LAUNCH_S
+                cost += LAUNCH_S + (out + M * N * out_bytes
+                                    + acc_bytes) / HBM_BYTES
             if cost < best_cost:
                 best_cost = cost
                 best = (bn, splits, sps, blocks, group, stages, smem, a_b,

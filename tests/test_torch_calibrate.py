@@ -354,7 +354,7 @@ def test_remat_chain_plans_take_a_new_design(layout):
                "tn": (REMAT_WIDTH, REMAT_WIDTH, REMAT_BATCH)}[layout]
     bk = 512 if layout == "nn" else BWD_KSLICE
     role, design = {"nn": ("fwd", "stream"), "nt": ("dgrad", "persistent"),
-                    "tn": ("wgrad", "wgmma")}[layout]
+                    "tn": ("wgrad", "persistent")}[layout]
     plan = plan_launch(M, N, K, bk, layout=layout, role=role)
     assert plan.variant == design, plan
     assert plan.k_ranges(K)[-1][1] == K

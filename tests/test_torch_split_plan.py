@@ -3,8 +3,8 @@
 `repro_torch.kernels.split_matmul.plan_launch` is pure Python: it picks
 the CUDA design for a product (weight streaming with split-K for decode
 rows, TMA + wgmma for prefill rows, the persistent TMA + wgmma design
-for the accumulating form and dgrad, the general first-version kernel
-only where none can run), its tile and its K split, for each operand
+for the accumulating form, dgrad and wgrad, the general first-version
+kernel only where none can run), its tile and its K split, for each operand
 layout: "nn" (the forward, the accumulating form, the tied head's
 dgrad), "nt" (dgrad and the tied head's forward) and "tn" (wgrad).  Here
 it is checked at every product of the two served models and of
@@ -234,13 +234,13 @@ CE_ROWS = 8 * 512              # one chunk of the chunked cross-entropy
                          _products("qwen1.5-0.5b")[0],
                          ids=lambda v: str(v))
 def test_backward_plans_at_qwen_training_shapes(name, K, N):
-    """Every backward product of the training step takes a TMA + wgmma
-    design (never the general kernel), with K cut at multiples of 64:
-    dgrad dy (rows, N) . w^T ("nt") the persistent design, wgrad x^T . dy
-    ("tn", contracted over the rows) the grid design."""
+    """Every backward product of the training step takes the persistent
+    TMA + wgmma design (never the general kernel), with K cut at
+    multiples of 64: dgrad dy (rows, N) . w^T ("nt") and wgrad x^T . dy
+    ("tn", contracted over the rows)."""
     for M_, N_, K_, layout, role, design in (
             (TRAIN_ROWS, K, N, "nt", "dgrad", "persistent"),
-            (K, N, TRAIN_ROWS, "tn", "wgrad", "wgmma")):
+            (K, N, TRAIN_ROWS, "tn", "wgrad", "persistent")):
         plan = plan_launch(M_, N_, K_, BWD_KSLICE, layout=layout, role=role)
         assert plan.variant == design, plan
         assert plan.kslice % 64 == 0
@@ -252,16 +252,16 @@ def test_backward_plans_at_qwen_training_shapes(name, K, N):
 def test_head_plans_take_the_transposed_layouts():
     """The tied head at one CE chunk: the forward x emb^T reads the
     (V, d) embedding as stored ("nt"), its dgrad is dy emb ("nn") and
-    its wgrad dy^T x ("tn"): the forward and wgrad on the grid design,
-    dgrad on the persistent one; the backward layouts never stream, and
-    fall back to the strided kernel only for what wgmma cannot take."""
+    its wgrad dy^T x ("tn"): the forward on the grid design, dgrad and
+    wgrad on the persistent one; the backward layouts never stream, and
+    fall back to the strided kernel only for what TMA cannot take."""
     _, (_, d, Vp) = _products("qwen1.5-0.5b")
     fwd = plan_launch(CE_ROWS, Vp, d, BK, layout="nt")
     dgrad = plan_launch(CE_ROWS, d, Vp, BWD_KSLICE, role="dgrad")
     wgrad = plan_launch(Vp, d, CE_ROWS, BWD_KSLICE, layout="tn",
                         role="wgrad")
     assert (fwd.variant, dgrad.variant, wgrad.variant) == (
-        "wgmma", "persistent", "wgmma")
+        "wgmma", "persistent", "persistent")
     assert plan_launch(8, 1024, 1024, BK, layout="nt").variant == "wgmma"
     assert plan_launch(8, 1024, 1024, BWD_KSLICE, layout="nt",
                        role="dgrad").variant == "persistent"
@@ -318,8 +318,8 @@ def test_acc_and_dgrad_take_the_persistent_design(role, layout, M, N, K,
 
 def test_stream_rows_keep_the_stream_design():
     """At decode rows the accumulating form and the "nn" dgrad stay on
-    weight streaming; wgrad and the forward never take the persistent
-    design."""
+    weight streaming; the forward never takes the persistent design,
+    wgrad ("tn") always does."""
     assert plan_launch(8, 1024, 704, BK, role="acc").variant == "stream"
     assert plan_launch(64, 1024, 2048, BWD_KSLICE,
                        role="dgrad").variant == "stream"
@@ -329,38 +329,52 @@ def test_stream_rows_keep_the_stream_design():
     plan = plan_launch(300, 256, 1000, 100, role="acc")
     assert (plan.variant, plan.kslice, plan.splits) == ("persistent", 1000,
                                                         1)
-    for role, layout in (("fwd", "nn"), ("fwd", "nt"), ("wgrad", "tn")):
+    for role, layout in (("fwd", "nn"), ("fwd", "nt")):
         assert plan_launch(4096, 1024, 1024, BK, layout=layout,
                            role=role).variant == "wgmma"
+    for M in (8, 64, 4096):
+        assert plan_launch(M, 1024, 1024, BK, layout="tn",
+                           role="wgrad").variant == "persistent"
     with pytest.raises(ValueError):
         plan_launch(4096, 1024, 1024, BK, layout="nt", role="acc")
 
 
-# forward "nn" at the layer products and the w13 chunk, the tied head's
-# forward "nt" at a CE chunk and every wgrad "tn": (M, N, K, layout, bn,
-# splits, slices a split, blocks) as the grid design plans them
+# forward "nn" at the layer products and the w13 chunk and the tied
+# head's forward "nt" at a CE chunk, as the grid design plans them, and
+# every wgrad "tn", as the persistent design plans them (bn and splits
+# the fastest of a sweep of both on an H100): (M, N, K, layout, design,
+# bn, splits, slices a split, blocks, tile-order group)
 PINNED = {
-    "fwd-attn": (TRAIN_ROWS, 1024, 1024, "nn", 256, 1, 2, 1024),
-    "fwd-w13": (TRAIN_ROWS, 5632, 1024, "nn", 256, 1, 2, 5632),
-    "fwd-w2": (TRAIN_ROWS, 1024, 2816, "nn", 256, 1, 6, 1024),
-    "fwd-w13_chunk": (TRAIN_ROWS, 1408, 1024, "nn", 256, 1, 2, 1536),
-    "fwd-head-nt": (CE_ROWS, 152064, 1024, "nt", 256, 1, 2, 19008),
-    "wgrad-attn": (1024, 1024, TRAIN_ROWS, "tn", 256, 4, 16, 128),
-    "wgrad-w13": (1024, 5632, TRAIN_ROWS, "tn", 256, 3, 22, 528),
-    "wgrad-w2": (2816, 1024, TRAIN_ROWS, "tn", 256, 3, 22, 264),
-    "wgrad-w13_chunk": (1024, 1408, TRAIN_ROWS, "tn", 192, 2, 32, 128),
-    "wgrad-w2_chunk": (704, 1024, TRAIN_ROWS, "tn", 256, 5, 13, 120),
-    "wgrad-head": (152064, 1024, CE_ROWS, "tn", 256, 1, 8, 4752),
+    "fwd-attn": (TRAIN_ROWS, 1024, 1024, "nn", "wgmma", 256, 1, 2, 1024, 0),
+    "fwd-w13": (TRAIN_ROWS, 5632, 1024, "nn", "wgmma", 256, 1, 2, 5632, 0),
+    "fwd-w2": (TRAIN_ROWS, 1024, 2816, "nn", "wgmma", 256, 1, 6, 1024, 0),
+    "fwd-w13_chunk": (TRAIN_ROWS, 1408, 1024, "nn", "wgmma", 256, 1, 2,
+                      1536, 0),
+    "fwd-head-nt": (CE_ROWS, 152064, 1024, "nt", "wgmma", 256, 1, 2, 19008,
+                    0),
+    "wgrad-attn": (1024, 1024, TRAIN_ROWS, "tn", "persistent", 256, 4, 16,
+                   128, 8),
+    "wgrad-w13": (1024, 5632, TRAIN_ROWS, "tn", "persistent", 256, 3, 22,
+                  132, 6),
+    "wgrad-w2": (2816, 1024, TRAIN_ROWS, "tn", "persistent", 256, 3, 22,
+                 132, 22),
+    "wgrad-w13_chunk": (1024, 1408, TRAIN_ROWS, "tn", "persistent", 192, 2,
+                        32, 128, 8),
+    "wgrad-w2_chunk": (704, 1024, TRAIN_ROWS, "tn", "persistent", 256, 5,
+                       13, 120, 6),
+    "wgrad-head": (152064, 1024, CE_ROWS, "tn", "persistent", 256, 1, 8,
+                   132, 33),
 }
 
 
 @pytest.mark.parametrize("name", list(PINNED))
 def test_grid_design_plans_stay_pinned(name):
-    M, N, K, layout, bn, splits, sps, blocks = PINNED[name]
+    M, N, K, layout, design, bn, splits, sps, blocks, group = PINNED[name]
     role = "wgrad" if layout == "tn" else "fwd"
     plan = plan_launch(M, N, K, 512, layout=layout, role=role)
     assert (plan.variant, plan.bn, plan.splits, plan.slices_per_split,
-            plan.blocks) == ("wgmma", bn, splits, sps, blocks)
+            plan.blocks, plan.group) == (design, bn, splits, sps, blocks,
+                                         group)
 
 
 def test_tile_order_by_hand():
@@ -429,3 +443,95 @@ def test_operand_bytes_one_pass_against_row_tiles_fastest():
     assert (a, b) == (one, N * K * 2)
     a, b = operand_bytes(M, N, K, bn, 1, K, blocks, M // WGMMA_BM)
     assert (a, b) == (4 * one, N * K * 2)
+
+
+# --- wgrad ("tn") on the persistent design ----------------------------------
+
+CHAIN_WIDTH, CHAIN_ROWS = 16384, 64   # the calibration's remat chain
+
+
+def _wgrad_products():
+    """(name, M, N, K) of every wgrad of qwen1.5-0.5b's step and of the
+    calibration's remat chain, as out(M, N) = x^T (M, K) . dy (K, N),
+    contracted over the K rows: the layers unchunked and at the plan's
+    FFN split of 4, the tied head's dy^T x at a CE chunk, the chain's
+    16384 x 16384 weight over 64 rows."""
+    layers, (_, d, Vp) = _products("qwen1.5-0.5b")
+    c = get_arch("qwen1.5-0.5b").d_ff // SPLIT
+    out = [(f"wgrad-{n}", K, N, TRAIN_ROWS)
+           for n, K, N in layers + [("w13_chunk", d, 2 * c),
+                                    ("w2_chunk", c, d)]]
+    out += [("wgrad-head", Vp, d, CE_ROWS),
+            ("wgrad-chain", CHAIN_WIDTH, CHAIN_WIDTH, CHAIN_ROWS)]
+    return [pytest.param(*p[1:], id=p[0]) for p in out]
+
+
+@pytest.mark.parametrize("M,N,K", _wgrad_products())
+def test_every_wgrad_takes_the_persistent_design(M, N, K):
+    """Each wgrad of the step and of the chain takes the persistent
+    design: one block a SM at most, K cut at multiples of 64 on whole
+    slices, a ring of at least MIN_STAGES stages beside its staging
+    buffers (fp32 partials with split-K) within a block's shared
+    memory."""
+    plan = plan_launch(M, N, K, BWD_KSLICE, layout="tn", role="wgrad")
+    assert plan.variant == "persistent", plan
+    assert plan.bm == WGMMA_BM and plan.bn in PERSISTENT_BNS
+    assert plan.kslice == 64 * math.ceil(min(BWD_KSLICE, K) / 64)
+    _check_ranges(plan, K)
+    items = math.ceil(M / WGMMA_BM) * math.ceil(N / plan.bn) * plan.splits
+    assert plan.blocks == min(N_SM, items)
+    assert (plan.stages, plan.smem) == persistent_smem(
+        plan.bn, 4 if plan.splits > 1 else 2)
+    assert plan.stages >= MIN_STAGES and plan.smem <= SMEM_LIMIT
+    assert plan.workspace == ((plan.splits, M, N) if plan.splits > 1
+                              else ())
+
+
+def test_head_wgrad_reads_dy_once():
+    """The tied head's wgrad dy^T x at a CE chunk (out 152064 x 1024 over
+    4096 rows): the plan's grouped raster reads dy (the row operand A,
+    stored (4096, 152064)) from memory once; in the grid design's order
+    (all 1188 row tiles in one group, row tiles fastest) each of the
+    column tiles reads it again."""
+    _, (_, d, Vp) = _products("qwen1.5-0.5b")
+    plan = plan_launch(Vp, d, CE_ROWS, BWD_KSLICE, layout="tn",
+                       role="wgrad")
+    one = Vp * CE_ROWS * 2
+    assert plan.row_bytes == one
+    span = plan.slices_per_split * plan.kslice
+    grid, _ = operand_bytes(Vp, d, CE_ROWS, plan.bn, plan.splits, span,
+                            plan.blocks, math.ceil(Vp / WGMMA_BM))
+    assert grid == math.ceil(d / plan.bn) * one
+
+
+@pytest.mark.parametrize("M,N,K,n_sm,splits", [
+    (128, 192, 2048, 16, 4),    # split-K on a small card
+    (200, 136, 1000, 8, 2),     # ragged output rows and columns, K not a
+                                # multiple of 64
+    (64, 256, 4096, 132, 8),    # fewer tiles than SMs: split-K
+    (256, 128, 640, 132, 1),    # one split of a slice and a part
+    (256, 384, 1536, 4, 1),     # tiles enough for a small card
+], ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wgrad_split_order_matches_jax(M, N, K, n_sm, splits, dtype):
+    """The persistent wgrad plan's summation order (fp32 partials over
+    its `k_ranges`, each over whole 512-row slices, summed in split
+    order: `ref.split_matmul_splitk_ref` on x^T) against the JAX
+    package's x.T @ dy in fp32.  Tolerances as above: f32 2e-4 / 1e-3
+    (another order of fp32 sums), bf16 2e-2 (one bf16 ulp of an O(1)
+    output, the cast at the end)."""
+    plan = plan_launch(M, N, K, BWD_KSLICE, n_sm=n_sm, layout="tn",
+                       role="wgrad")
+    assert (plan.variant, plan.splits) == ("persistent", splits)
+    rng = np.random.default_rng(M + N + K)
+    x = _rand(rng, (K, M), dtype)
+    dy = (_rand(rng, (K, N), "float32") / np.sqrt(K)).astype(x.dtype)
+    want = jnp.matmul(jnp.asarray(x).T, jnp.asarray(dy),
+                      preferred_element_type=jnp.float32)
+    got = ref.split_matmul_splitk_ref(to_torch(x, "cpu").t(),
+                                      to_torch(dy, "cpu"), plan.kslice,
+                                      plan.k_ranges(K))
+    tol = (dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16"
+           else dict(atol=2e-4, rtol=1e-3))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)

@@ -10,8 +10,9 @@ entry `split_matmul_wgmma_bf16`) by variant builds.  It copies `--source` (by de
 `src/repro_torch/csrc/split_matmul.cu`) into libraries of its own under
 `build/split_matmul_phases/`, each with a few lines of the copy
 replaced, and times one call of each at qwen1.5-0.5b's training shapes
-of the accumulating form and of dgrad by CUDA-graph replay (20 calls,
-median of 5 replays), at the launch plan the grid design takes there:
+of the accumulating form, of dgrad and of wgrad (and the calibration
+chain's) by CUDA-graph replay (20 calls, median of 5 replays), at the
+launch plan the grid design takes there:
 
   full          the kernel as it is (row tiles the grid's fastest axis);
   col_fastest   the grid's axes swapped: the column tiles of a row tile
@@ -25,10 +26,12 @@ median of 5 replays), at the launch plan the grid design takes there:
                 products and the ring's handshakes remain.
 
 The grid kernel's accumulating epilogue went once the persistent design
-took every accumulating call at these rows, so the old variants of the
-accumulating shape need `--source` to be a copy of the file from before
-(`git show e33a49c:src/repro_torch/csrc/split_matmul.cu`); with a source
-whose grid kernel has no such epilogue they are left out at that shape.
+took every accumulating call at these rows, and its "tn" layout once
+the persistent design took every wgrad, so the old variants of those
+shapes need `--source` to be a copy of the file from before
+(`git show e33a49c:src/repro_torch/csrc/split_matmul.cu` for the
+accumulating form, `git show 80a3e61:...` for wgrad); with a source
+whose grid kernel lacks them they are left out at those shapes.
 
 `full - col_fastest` is what streaming the row operand once per column
 tile costs, `full - no_epilogue` what the epilogue costs where nothing
@@ -43,8 +46,11 @@ persistent design at each tile width (from the `full` copy; its output
 compared with the grid kernel's bit for bit, and a repeat with itself),
 and with its producer edited not to load the weight tiles (`p_no_b`) or
 any ring tile (`p_no_loads`); the design the wrapper's plan takes now
-for each role (`plan_launch` with `role="acc"` or `"dgrad"`, through the
-repository's own library); and the library calls (`torch.matmul`; for
+for each role (`plan_launch` with `role="acc"`, `"dgrad"` or
+`"wgrad"`, through the repository's own library); for wgrad, where the
+source's persistent kernel takes "tn", every (bn, split-K) candidate
+of the persistent design (`--sweep`); and the library calls
+(`torch.matmul`, for "tn" `torch.matmul(a.t(), b)`; for
 the accumulating form also `torch.addmm(acc, x, w,
 out_dtype=torch.float32)` where this torch takes it, and `acc * 2`, the
 fp32 read and write of acc's own bytes).
@@ -78,6 +84,13 @@ SHAPES = {
     "dgrad_w2": ("dgrad", 32768, 2816, 1024, "nt"),
     "dgrad_head": ("dgrad", 4096, 1024, 152064, "nn"),
     "dgrad_chain": ("dgrad", 64, 16384, 16384, "nt"),
+    # wgrad dw = x^T dy, "tn": A is x stored (K, M), contracted over the
+    # step's rows; the head's is dy^T x over a CE chunk of 4096 rows
+    "wgrad_head": ("wgrad", 152064, 1024, 4096, "tn"),
+    "wgrad_chain": ("wgrad", 16384, 16384, 64, "tn"),
+    "wgrad_attention": ("wgrad", 1024, 1024, 32768, "tn"),
+    "wgrad_w13_chunk": ("wgrad", 1024, 1408, 32768, "tn"),
+    "wgrad_w2_chunk": ("wgrad", 704, 1024, 32768, "tn"),
 }
 ROW_TILES = ("  const int m0 = blockIdx.x * WG_BM;   // row tiles fastest: "
              "the blocks\n  const int n0 = blockIdx.y * BN;      // that "
@@ -90,8 +103,15 @@ INCLUDE = '#include "hopper.cuh"\n'
 # the grid kernel's C entry as it was while it took the accumulating form
 GRID_ACC = re.compile(r"split_matmul_wgmma_bf16\(const void\* x, const void\* w,"
                       r"\s+void\* y,\s+void\* ws, const void\* acc")
+# the grid kernel's C entry as it was while it took "tn"
+GRID_TN = "launch_wgmma_bn<TN>"
+# the persistent kernel's C entry taking "tn"
+PERSISTENT_TN = "launch_persistent_bn<TN, "
 P_EXPECT = "          mbar_arrive_expect_tx(&full[stage], P::STAGE_BYTES);\n"
-P_A_LOAD = "          tma_load_2d(a, &tx, &full[stage], k0, m0);\n"
+# the producer's A load: one line before the persistent design took
+# "tn", a helper after
+P_A_LOAD = ("          tma_load_2d(a, &tx, &full[stage], k0, m0);\n",
+            "          load_a<L>(a, &tx, &full[stage], k0, m0);\n")
 P_B_LOOP = "          for (int j = 0; j < BN / 64; ++j) {\n"
 VARIANTS = {
     "full": [],
@@ -108,7 +128,7 @@ VARIANTS = {
     # without any ring load (the acc tile still loads)
     "p_no_b": [(P_EXPECT, P_EXPECT.replace("P::STAGE_BYTES", "A_BYTES")),
                (P_B_LOOP, P_B_LOOP.replace("BN / 64", "0"))],
-    "p_no_loads": [(P_EXPECT + P_A_LOAD,
+    "p_no_loads": [(tuple(P_EXPECT + a for a in P_A_LOAD),
                     P_EXPECT.replace("P::STAGE_BYTES", "0")),
                    (P_B_LOOP, P_B_LOOP.replace("BN / 64", "0"))],
 }
@@ -116,35 +136,49 @@ OLD_VARIANTS = ("full", "col_fastest", "no_epilogue", "products")
 
 
 def variant_source(text: str, edits: list) -> str:
+    """`text` with each edit's old lines replaced; an edit's old lines
+    may be a tuple of alternatives, of which exactly one is present."""
     for old, new in edits:
-        if text.count(old) != 1:
-            raise SystemExit(f"the source holds {text.count(old)} copies "
-                             f"of the line to replace:\n{old}")
-        text = text.replace(old, new)
+        alts = old if isinstance(old, tuple) else (old,)
+        found = [a for a in alts if text.count(a)]
+        if len(found) != 1 or text.count(found[0]) != 1:
+            copies = [text.count(a) for a in alts]
+            raise SystemExit(f"the source holds {copies} copies of the "
+                             f"lines to replace:\n{alts}")
+        text = text.replace(found[0], new)
     return text
 
 
-def load(so: Path, grid_acc: bool) -> ctypes.CDLL:
-    """The library at `so`, its grid entry typed; `grid_acc`: that entry
-    takes an `acc` pointer (the source is from before the persistent
-    design took the accumulating form)."""
+def load(so: Path, text: str) -> ctypes.CDLL:
+    """The library at `so`, built from the source `text`, its entries
+    typed and marked with the roles its kernels take: `grid_acc`, the
+    grid entry takes an `acc` pointer (a source from before the
+    persistent design took the accumulating form); `grid_tn`, the grid
+    kernel takes "tn"; `persistent_tn`, the persistent kernel does."""
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.split_matmul_wgmma_bf16.argtypes = ([p] * (5 if grid_acc else 4)
+    lib.grid_acc = bool(GRID_ACC.search(text))
+    lib.grid_tn = GRID_TN in text
+    lib.persistent_tn = PERSISTENT_TN in text
+    lib.split_matmul_wgmma_bf16.argtypes = ([p] * (5 if lib.grid_acc else 4)
                                             + [i] * 8 + [p])
     lib.split_matmul_wgmma_bf16.restype = i
-    lib.grid_acc = grid_acc
+    if hasattr(lib, "split_matmul_persistent_bf16"):
+        lib.split_matmul_persistent_bf16.argtypes = [p] * 5 + [i] * 10 + [p]
+        lib.split_matmul_persistent_bf16.restype = i
     return lib
 
 
-def build_all(src: Path) -> dict:
-    """Compile every variant in parallel; name -> CDLL."""
+def build_all(src: Path, persistent_variants: bool) -> dict:
+    """Compile every variant in parallel; name -> CDLL.  The persistent
+    producer's variants only with `persistent_variants`."""
     text = src.read_text()
     out = ROOT / "build" / "split_matmul_phases"
     persistent = "split_matmul_persistent_kernel" in text
     sources = {name: variant_source(text, edits)     # all edits first
                for name, edits in VARIANTS.items()
-               if persistent or name in OLD_VARIANTS}
+               if name in OLD_VARIANTS or (persistent and
+                                           persistent_variants)}
     procs = {}
     for name, source in sources.items():
         d = out / name
@@ -161,13 +195,7 @@ def build_all(src: Path) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on variant {name}:\n{log}")
-        lib = load(so, bool(GRID_ACC.search(text)))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        if hasattr(lib, "split_matmul_persistent_bf16"):
-            lib.split_matmul_persistent_bf16.argtypes = [p] * 5 + [i] * 10 \
-                + [p]
-            lib.split_matmul_persistent_bf16.restype = i
-        libs[name] = lib
+        libs[name] = load(so, text)
     return libs
 
 
@@ -195,10 +223,18 @@ def graph_ms(fn, calls=20, reps=5) -> float:
     return float(np.median(times))
 
 
+def has_grid(lib, role) -> bool:
+    """The grid kernel of `lib` takes this role."""
+    return {"acc": lib.grid_acc, "wgrad": lib.grid_tn}.get(role, True)
+
+
 def old_caller(lib, layout, M, N, K, a, b, acc):
-    """fn() launching the grid kernel of `lib` as its plan does."""
+    """fn() launching the grid kernel of `lib` as its plan does.  The
+    grid's cost model reads the layout only through its K slice, which
+    is the same in "nn" at these shapes (512, or all of a K of 64), so
+    the "tn" plan the grid took is the "nn" forward's."""
     plan = sm.plan_launch(M, N, K, 512 if acc is not None else sm.BWD_KSLICE,
-                          layout=layout)
+                          layout="nn" if layout == "tn" else layout)
     y = torch.empty(M, N, device="cuda",
                     dtype=torch.float32 if acc is not None else a.dtype)
     ws = (torch.empty(plan.workspace, device="cuda")
@@ -220,28 +256,45 @@ def old_caller(lib, layout, M, N, K, a, b, acc):
     return run, plan
 
 
-def persistent_caller(lib, layout, M, N, K, a, b, acc, bn, n_sm):
-    """fn() launching the persistent design of `lib` at tile width `bn`,
-    one split, its blocks and group as `plan_launch` sets them."""
-    tiles_m, tiles_n = math.ceil(M / sm.WGMMA_BM), math.ceil(N / bn)
-    blocks = min(n_sm, tiles_m * tiles_n)
-    group = max(1, min(tiles_m, blocks // tiles_n))
+def persistent_caller(lib, layout, M, N, K, a, b, acc, bn, n_sm, want=1):
+    """fn() launching the persistent design of `lib` at tile width `bn`
+    and about `want` splits of whole K slices (`sm._splits`), its blocks
+    and group as `plan_launch` sets them; returns (fn, (blocks, group,
+    splits))."""
     kslice = 512 if acc is not None else sm.BWD_KSLICE
-    kslice = min(kslice, K) if layout == "nn" else kslice
-    sps = math.ceil(K / kslice)
+    kslice = (min(kslice, K) if layout == "nn"
+              else 64 * math.ceil(min(kslice, K) / 64))
+    splits, sps = sm._splits(math.ceil(K / kslice), want)
+    tiles_m, tiles_n = math.ceil(M / sm.WGMMA_BM), math.ceil(N / bn)
+    blocks = min(n_sm, tiles_m * tiles_n * splits)
+    group = max(1, min(tiles_m, blocks // tiles_n))
     y = torch.empty(M, N, device="cuda",
                     dtype=torch.float32 if acc is not None else a.dtype)
+    ws = (torch.empty(splits, M, N, device="cuda") if splits > 1 else None)
 
     def run():
         rc = lib.split_matmul_persistent_bf16(
-            a.data_ptr(), b.data_ptr(), y.data_ptr(), None,
+            a.data_ptr(), b.data_ptr(), y.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
             acc.data_ptr() if acc is not None else None, sm.LAYOUTS[layout],
-            M, N, K, kslice, bn, 1, sps, blocks, group,
+            M, N, K, kslice, bn, splits, sps, blocks, group,
             torch.cuda.current_stream().cuda_stream)
         if rc:
             raise SystemExit(f"CUDA error {rc}")
         return y
-    return run, (blocks, group)
+    return run, (blocks, group, splits)
+
+
+def operands(role, M, N, K, layout, gen):
+    """The inputs of a shape: A as stored ((K, M) for "tn"), B as stored
+    ((N, K) for "nt"), scaled so the output is about 1, and acc."""
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device="cuda")
+                               * scale).bfloat16()
+    a = r(*((K, M) if layout == "tn" else (M, K)))
+    b = r(*((N, K) if layout == "nt" else (K, N)), scale=K ** -0.5)
+    acc = (torch.randn(M, N, generator=gen, device="cuda")
+           if role == "acc" else None)
+    return a, b, acc
 
 
 def ncu_exe():
@@ -269,17 +322,32 @@ def ncu_bytes(exe: str, shape: str, src: Path) -> str:
 
 def child(shape: str, src: Path) -> int:
     lib = load(ROOT / "build/split_matmul_phases/full/libsplit_matmul.so",
-               bool(GRID_ACC.search(src.read_text())))
+               src.read_text())
     role, M, N, K, layout = SHAPES[shape]
-    if role == "acc" and not lib.grid_acc:
+    if not has_grid(lib, role):
         return 0
-    a = torch.randn(M, K, device="cuda").bfloat16()
-    b = torch.randn(*((N, K) if layout == "nt" else (K, N)),
-                    device="cuda").bfloat16()
-    acc = torch.randn(M, N, device="cuda") if role == "acc" else None
+    a, b, acc = operands(role, M, N, K, layout,
+                         torch.Generator(device="cuda").manual_seed(0))
     old_caller(lib, layout, M, N, K, a, b, acc)[0]()
     torch.cuda.synchronize()
     return 0
+
+
+def library_call(layout, a, b):
+    """fn() of the library's product for the shape, bf16 out."""
+    if layout == "tn":
+        return lambda: torch.matmul(a.t(), b)
+    bt = b.t() if layout == "nt" else b
+    return lambda: torch.matmul(a, bt)
+
+
+def versus_text(y, old) -> str:
+    if old is None:
+        return "no grid result to compare"
+    if torch.equal(y, old):
+        return "bit-identical to full"
+    return f"max diff {(y.float() - old.float()).abs().max().item():.3g} " \
+           f"from full"
 
 
 def main() -> int:
@@ -288,6 +356,9 @@ def main() -> int:
                     default=ROOT / "src/repro_torch/csrc/split_matmul.cu")
     ap.add_argument("--shapes", nargs="*", default=list(SHAPES),
                     choices=list(SHAPES))
+    ap.add_argument("--sweep", action="store_true",
+                    help="wgrad: time every (bn, split-K) candidate of the "
+                         "persistent design")
     ap.add_argument("--child", choices=list(SHAPES), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -298,26 +369,25 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"{card}; variants of {args.source}")
-    libs = build_all(args.source)
+    text = args.source.read_text()
+    libs = build_all(args.source, any(
+        SHAPES[n][0] != "wgrad" or PERSISTENT_TN in text
+        for n in args.shapes))
     exe = ncu_exe()
     if not exe:
         print("ncu: not on this machine; DRAM bytes not measured")
     else:
-        for shape in ("acc_w2_chunk", "dgrad_attention"):
+        for shape in args.shapes[:2]:
             print(f"ncu {shape}: {ncu_bytes(exe, shape, args.source)}",
                   flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device="cuda")
-                               * scale).bfloat16()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    full = libs["full"]
     for name in args.shapes:
         role, M, N, K, layout = SHAPES[name]
-        a = r(M, K)
-        b = r(*((N, K) if layout == "nt" else (K, N)), scale=K ** -0.5)
-        acc = (torch.randn(M, N, generator=gen, device="cuda")
-               if role == "acc" else None)
-        grid = acc is None or libs["full"].grid_acc
-        bt = b.t() if layout == "nt" else b
-        lib_ms = graph_ms(lambda: torch.matmul(a, bt))
+        a, b, acc = operands(role, M, N, K, layout, gen)
+        grid = has_grid(full, role)
+        lib_ms = graph_ms(library_call(layout, a, b))
         line = f"{name} {role} {layout} (M {M}, N {N}, K {K}) "
         if grid:
             times = {}
@@ -335,7 +405,7 @@ def main() -> int:
                      f"no_epilogue - products "
                      f"{times['no_epilogue'] - times['products']:+.4f}")
         else:
-            line += "old variants left out (no accumulating grid epilogue)"
+            line += f"old variants left out (no grid {role} in the source)"
         line += f"; torch.matmul (bf16 out) {lib_ms:.4f}"
         if acc is not None:
             twice = torch.empty_like(acc)
@@ -348,43 +418,54 @@ def main() -> int:
                 line += f"; torch.addmm fp32 out {graph_ms(addmm):.4f}"
             except (TypeError, RuntimeError) as e:
                 line += f"; torch.addmm fp32 out refused ({e})"
-        if hasattr(libs["full"], "split_matmul_persistent_bf16"):
-            n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        persistent = hasattr(full, "split_matmul_persistent_bf16") and (
+            layout != "tn" or full.persistent_tn)
+        if persistent:
             old = None
             if grid:
-                old = old_caller(libs["full"], layout, M, N, K, a, b,
-                                 acc)[0]()
+                old = old_caller(full, layout, M, N, K, a, b, acc)[0]()
                 torch.cuda.synchronize()
                 old = old.clone()
             for bn in (128,) if acc is not None else sm.PERSISTENT_BNS:
-                fn, (blocks, group) = persistent_caller(
-                    libs["full"], layout, M, N, K, a, b, acc, bn, n_sm)
+                fn, (blocks, group, _) = persistent_caller(
+                    full, layout, M, N, K, a, b, acc, bn, n_sm)
                 y = fn()
                 torch.cuda.synchronize()
-                if old is None:
-                    versus = "no grid result to compare"
-                elif torch.equal(y, old):
-                    versus = "bit-identical to full"
-                else:
-                    diff = (y.float() - old.float()).abs().max().item()
-                    versus = f"max diff {diff:.3g} from full"
                 again = torch.equal(y.clone(), fn())
                 line += (f"; persistent bn {bn} ({blocks} blocks, group "
-                         f"{group}) {graph_ms(fn):.4f} ms ({versus}"
+                         f"{group}) {graph_ms(fn):.4f} ms "
+                         f"({versus_text(y, old)}"
                          f"{'' if again else ', A REPEAT DIFFERS'}; without "
                          + ", ".join(
                              f"{v[2:]} " + f"{graph_ms(persistent_caller(libs[v], layout, M, N, K, a, b, acc, bn, n_sm)[0]):.4f}"
                              for v in ("p_no_b", "p_no_loads")) + ")")
+            if role == "wgrad" and args.sweep:
+                line += "; sweep (bn x splits: ms)"
+                n_slices = math.ceil(K / (64 * math.ceil(
+                    min(sm.BWD_KSLICE, K) / 64)))
+                for bn in sm.PERSISTENT_BNS:
+                    seen = set()
+                    for want in range(1, min(n_slices, 16) + 1):
+                        fn, (_, _, splits) = persistent_caller(
+                            full, layout, M, N, K, a, b, acc, bn, n_sm,
+                            want)
+                        if splits in seen:
+                            continue
+                        seen.add(splits)
+                        line += f" {bn}x{splits} {graph_ms(fn):.4f}"
         plan = sm.plan_launch(M, N, K, 512 if acc is not None
                               else sm.BWD_KSLICE, layout=layout, role=role)
         if role == "acc":
             now = lambda: sm.split_matmul(a, b, acc=acc)
         else:
-            now = lambda: sm._launch(a, b, layout, sm.BWD_KSLICE, "dgrad")
-        line += (f"; now {plan.variant} bn {plan.bn} x {plan.splits} "
-                 f"splits, {plan.blocks} blocks, group {plan.group}: "
-                 f"{graph_ms(now):.4f}")
+            now = lambda: sm._launch(a, b, layout, sm.BWD_KSLICE, role)
+        if plan.variant != "wgmma" or layout != "tn":
+            line += (f"; now {plan.variant} bn {plan.bn} x {plan.splits} "
+                     f"splits, {plan.blocks} blocks, group {plan.group}: "
+                     f"{graph_ms(now):.4f}")
         print(line, flush=True)
+        del a, b, acc
+        torch.cuda.empty_cache()
     return 0
 
 
