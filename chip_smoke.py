@@ -174,10 +174,20 @@ KERNEL_TOL = 2e-2
 SSD_TOL = 1e-3              # fp32 outputs of bf16 inputs (see above)
 SSD_TOL_F32 = 1e-4
 SSD_CHUNK_FLOOR = 64        # the plain scan's other chunk (noise floor)
+# ssd_scan_bwd, ||kernel - plain|| / ||plain|| an output, and at least 4x
+# the plain version's own noise at SSD_CHUNK_FLOOR: outputs in bf16 (dx,
+# db, dc of bf16 inputs) 1e-3, under half a bf16 ulp (2^-9) on average;
+# fp32 outputs 2e-4 (the bf16-term products keep about 2^-16 of each
+# term; ddt measured 4e-6, da_log, a sum over every row of a head with
+# cancellation, 5e-5)
+SSD_BWD_TOL = 1e-3
+SSD_BWD_TOL_F32 = 2e-4
+SSD_BWD_NAMES = ("dx", "ddt", "da_log", "db", "dc")
 SHALLOW = 4                 # layers of the second, shallow logit check
 LOGIT_TOL = 2e-2            # of the largest logit, the least tolerance
 LOGIT_FLOOR_FACTOR = 4      # x the plain version's own reordering noise
 TRAIN_ARCH = "qwen1.5-0.5b"
+SSM_TRAIN_ARCH = "mamba2-2.7b"  # phase 6b: the SSM family's training path
 TRAIN_BATCH = 8             # x seq 4096: 32,768 tokens a step
 TRAIN_STEPS = 5
 REMAT_STEPS = 3             # the same steps under global remat, and
@@ -215,6 +225,8 @@ SOURCES = {
                             "src/repro/kernels/flash_attention.py:80"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:62"),
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:62"),
 }
 
 
@@ -516,6 +528,23 @@ def _ssd_err(torch, got, want, tol, what):
     return err, scaled
 
 
+def ssd_flops(B, S, nh, hd, ns, chunk) -> tuple:
+    """(forward, backward) operations of the scan's least work, the
+    masked half of each chunk's square not counted (tri rows x columns a
+    chunk): forward c.b once per (batch, chunk) and per head the intra
+    product, the chunk states and the carried term; backward c.b, dc and
+    db from the head-summed dCB once, and per head the two intra
+    products (dy . xd^T and (CB L)^T dy) and six (hd x ns) products over
+    the rows (the chunk states again, dS_y, e dy P, c P^T for dcsum,
+    b D^T, w xd D)."""
+    Q = min(chunk, S)
+    tri = sum(n * (n + 1) / 2 for n in
+              [Q] * (S // Q) + ([S % Q] if S % Q else []))
+    fwd = 2.0 * B * (tri * ns + nh * (tri * hd + 2 * S * hd * ns))
+    bwd = 2.0 * B * (3 * tri * ns + nh * (2 * tri * hd + 6 * S * hd * ns))
+    return fwd, bwd
+
+
 def check_ssd(torch, B, S, gen, nh=80, hd=64, ns=128, chunk=256):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as sk
@@ -534,13 +563,8 @@ def check_ssd(torch, B, S, gen, nh=80, hd=64, ns=128, chunk=256):
 
     ms = _graph_ms(torch, kern, [args])
     eager_ms = _time_ms(torch, kern, [args])
-    plain_ms = _time_ms(torch, plain, [args], iters=5)
-    # the least work of this call: c.b once per (batch, chunk), the rest
-    # per head; the masked half of each chunk's square is not counted
-    Q = min(chunk, S)
-    tri = sum(n * (n + 1) / 2 for n in
-              [Q] * (S // Q) + ([S % Q] if S % Q else []))
-    flops = 2.0 * B * (tri * ns + nh * (tri * hd + 2 * S * hd * ns))
+    plain_ms = _time_ms(torch, plain, [args], iters=5 if B * S < 8192 else 1)
+    flops = ssd_flops(B, S, nh, hd, ns, chunk)[0]
     nbytes = (2.0 * (B * S * nh * hd + 2 * B * S * ns)     # bf16 x, b, c
               + 4.0 * (B * S * nh + nh)                     # fp32 dt, a_log
               + 4.0 * (B * S * nh * hd + B * nh * hd * ns))  # fp32 y, state
@@ -595,6 +619,148 @@ def check_ssd_design(torch, gen, mam) -> dict:
         _fail(f"ssd_scan: profiler saw kernels {sorted(passes)}")
     return dict(bit_identical=True, pass_ms=passes,
                 kernels_per_call=len(passes))
+
+
+def _rel_errs(torch, got, want) -> list:
+    """||got - want|| / ||want|| of each output, in fp32."""
+    return [((g.float() - w.float()).norm()
+             / w.float().norm().clamp_min(1e-30)).item()
+            for g, w in zip(got, want)]
+
+
+def check_ssd_bwd(torch, gen, B, S, nh=80, hd=64, ns=128, chunk=256,
+                  dtype=None, dfin=False, init=False, timed=True,
+                  autograd=False) -> dict:
+    """`ssd_scan_bwd` against `ref.ssd_scan_bwd_ref` on the same inputs
+    (and, with `autograd`, torch autograd of `ref.ssd_scan_ref`), each
+    output within SSD_BWD_TOL (bf16 outputs) or SSD_BWD_TOL_F32 of its
+    norm and within 4x the plain version's own noise (the plain backward
+    at chunk SSD_CHUNK_FLOOR against the model's chunk); a repeated call
+    bit-identical; with `timed`, its time (CUDA graph and eager), the
+    plain version's and its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as sk
+    args, s0 = _ssd_inputs(torch, gen, B, S, nh, hd, ns, dtype, init)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    dy = r(B, S, nh, hd)
+    df = r(B, nh, hd, ns) if dfin else None
+    kw = dict(chunk=chunk, d_final_state=df, init_state=s0)
+    what = f"ssd_scan_bwd {(B, S, nh, hd, ns, chunk)} {args[0].dtype}"
+    got = sk.ssd_scan_bwd(*args, dy, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, v) for u, v in
+               zip(got, sk.ssd_scan_bwd(*args, dy, **kw))):
+        _fail(f"{what}: two calls on the same inputs differ")
+    want = ref.ssd_scan_bwd_ref(*args, dy, **kw)
+    floor = _rel_errs(torch, ref.ssd_scan_bwd_ref(
+        *args, dy, **dict(kw, chunk=SSD_CHUNK_FLOOR)), want)
+    errs = _rel_errs(torch, got, want)
+    f32 = args[0].dtype == torch.float32
+    tols = [max(LOGIT_FLOOR_FACTOR * fl, SSD_BWD_TOL_F32
+                if f32 or n in ("ddt", "da_log") else SSD_BWD_TOL)
+            for n, fl in zip(SSD_BWD_NAMES, floor)]
+    checks = [("plain", errs)]
+    if autograd:
+        ts = [t.detach().clone().requires_grad_(True) for t in args]
+        y, fin = ref.ssd_scan_ref(*ts, chunk=chunk, init_state=s0)
+        loss = (y * dy).sum() + ((fin * df).sum() if dfin else 0.0)
+        checks.append(("autograd", _rel_errs(
+            torch, got, torch.autograd.grad(loss, ts))))
+        del ts, y, fin, loss
+    for name, es in checks:
+        for n, e, t, g in zip(SSD_BWD_NAMES, es, tols, got):
+            if not torch.isfinite(g).all() or not e <= t:
+                _fail(f"{what}: {n} off the {name} version by {e:.3g} of "
+                      f"its norm (tol {t:.3g})")
+    max_abs = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    out = dict(shape=[B, S, nh, hd, ns, chunk], dtype=str(args[0].dtype),
+               dfin=dfin, init=init, max_abs_err=max_abs,
+               rel_errs=dict(zip(SSD_BWD_NAMES, errs)),
+               floors=dict(zip(SSD_BWD_NAMES, floor)),
+               tols=dict(zip(SSD_BWD_NAMES, tols)),
+               autograd_errs=(dict(zip(SSD_BWD_NAMES, checks[1][1]))
+                              if autograd else None))
+    del got, want
+    if not timed:
+        return out
+    kern = lambda: sk.ssd_scan_bwd(*args, dy, **kw)
+    plain = lambda: ref.ssd_scan_bwd_ref(*args, dy, **kw)
+    es = 2 if args[0].dtype == torch.bfloat16 else 4
+    nbytes = (es * (2 * B * S * nh * hd + 4 * B * S * ns)  # x, dx; b, c, db, dc
+              + 4.0 * (2 * B * S * nh + 2 * nh)          # dt, ddt; a_log, da
+              + 4.0 * B * S * nh * hd                    # fp32 dy
+              + 4.0 * B * nh * hd * ns * (dfin + init))
+    flops = ssd_flops(B, S, nh, hd, ns, chunk)[1]
+    bound_ms, bound_by = _bound(flops, nbytes)
+    out.update(ms=_graph_ms(torch, kern, [()], iters=5 if B * S > 8192
+                            else 20),
+               eager_ms=_time_ms(torch, kern, [()], iters=5, warmup=1),
+               plain_ms=_time_ms(torch, plain, [()], iters=1, warmup=1),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               flops=flops, bytes=nbytes,
+               workspace_bytes=sk.plan_bwd(B, S, nh, hd, ns, chunk,
+                                           str(args[0].dtype)[6:])
+               .workspace_bytes)
+    return out
+
+
+def check_ssd_bwd_design(torch, gen, B, S, nh, hd, ns, chunk) -> dict:
+    """No register spill in the backward's kernels (their `-Xptxas -v`
+    lines), and the device time of each of its nine kernels a call at
+    (B, S) (profiler, 3 calls)."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import ssd_scan as sk
+    lines = [ln for ln in _ptxas(_lib.build_log) if "ssd_bwd" in ln]
+    spills = [ln for ln in lines if any(int(v) for v in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)", ln))]
+    if not lines or spills:
+        _fail(f"ssd_scan_bwd kernels spill registers (or none built): "
+              f"{spills or lines}")
+    args, _ = _ssd_inputs(torch, gen, B, S, nh, hd, ns)
+    dy = torch.randn(B, S, nh, hd, generator=gen, device="cuda")
+    sk.ssd_scan_bwd(*args, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sk.ssd_scan_bwd(*args, dy, chunk=chunk)
+        torch.cuda.synchronize()
+    names = {"ssd_scan_states_kernel": "F1 states", "ssd_scan_pass_kernel":
+             "F2 pass", "ssd_bwd_dstate_kernel": "B1 dstate",
+             "ssd_bwd_pass_kernel": "B2 pass", "ssd_bwd_chunk_kernel": "B3",
+             "ssd_bwd_finish_kernel": "B4 finish",
+             "ssd_bwd_da_kernel": "B5 da"}
+    roles = {"0": "B3 dx", "1": "B3 db", "2": "B3 rows"}
+    kernel_ms = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        k = next((v for n, v in names.items() if n in ev.key), None)
+        if k == "B3":
+            m = re.search(r"ssd_bwd_chunk_kernel<[^,>]+, (\d)>", ev.key)
+            k = roles.get(m.group(1)) if m else None
+        if k:
+            kernel_ms[k] = (kernel_ms.get(k, 0.0)
+                            + ev.self_device_time_total / 1e3 / calls)
+    want = sorted(set(names.values()) - {"B3"} | set(roles.values()))
+    if sorted(kernel_ms) != want:
+        _fail(f"ssd_scan_bwd: profiler saw kernels {sorted(kernel_ms)}")
+    return dict(ptxas=lines, kernel_ms=kernel_ms,
+                kernels_per_call=len(kernel_ms))
+
+
+# (B, S, dtype, d_final_state, initial state, what it exercises) of
+# `ssd_scan_bwd` at mamba2's widths off the training path
+SSD_BWD_CASES = (
+    (2, 100, "bfloat16", True, False, "S < chunk, B = 2"),
+    (1, 300, "float32", True, False, "f32 inputs, ragged S"),
+    (1, 1000, "bfloat16", True, True,
+     "4 chunks, the last ragged, an initial state"),
+)
 
 
 def check_options(torch, gen) -> int:
@@ -792,7 +958,8 @@ def plain_versions(bk=512, ssd_chunk=None, bq=512):
     of summation."""
     from repro_torch.kernels import ops, ref
     names = ("split_matmul", "split_matmul_dgrad", "split_matmul_wgrad",
-             "flash_attention", "flash_attention_bwd", "ssd_scan")
+             "flash_attention", "flash_attention_bwd", "ssd_scan",
+             "ssd_scan_bwd")
     saved = [getattr(ops, n) for n in names]
     ops.split_matmul = lambda x, w, transpose_w=False, acc=None, **_: \
         ref.split_matmul_ref(x, w.t() if transpose_w else w, bk=bk, acc=acc)
@@ -806,6 +973,8 @@ def plain_versions(bk=512, ssd_chunk=None, bq=512):
         *[t.contiguous() for t in a], bq=bq, **kw)
     ops.ssd_scan = lambda *a, chunk, init_state=None: ref.ssd_scan_ref(
         *a, chunk=ssd_chunk or chunk, init_state=init_state)
+    ops.ssd_scan_bwd = lambda *a, chunk, **kw: ref.ssd_scan_bwd_ref(
+        *a, chunk=ssd_chunk or chunk, **kw)
     try:
         yield
     finally:
@@ -1453,6 +1622,7 @@ def annotated_kernels():
     from torch.profiler import record_function
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import split_matmul as sm
+    from repro_torch.kernels import ssd_scan as sk
     saved = []
 
     def wrap(mod, attr, name):
@@ -1472,7 +1642,9 @@ def annotated_kernels():
                              "bucket:split_matmul_wgrad"),
                             (fa, "flash_attention", "bucket:flash_attention"),
                             (fa, "flash_attention_bwd",
-                             "bucket:flash_attention_bwd")):
+                             "bucket:flash_attention_bwd"),
+                            (sk, "ssd_scan", "bucket:ssd_scan"),
+                            (sk, "ssd_scan_bwd", "bucket:ssd_scan_bwd")):
         wrap(mod, attr, name)
     try:
         yield
@@ -1513,17 +1685,14 @@ def _profiled(torch, fn):
     return kernels, spans, wall_ms, sorted(others, reverse=True)[:10]
 
 
-def profile_step(torch, grads_fn, update_fn, acc: bool) -> dict:
+def profile_step(torch, grads_fn, update_fn, roles) -> dict:
     """Device ms of one training step by bucket: the kernels by role
-    (from their wrappers' ranges; `acc`: the step runs the accumulating
-    form), plain torch (every other kernel of the forward and backward),
-    and the AdamW update (all the kernels of `update_fn`, profiled on its
+    (from their wrappers' ranges; `roles`: the kernels the step runs),
+    plain torch (every other kernel of the forward and backward), and
+    the AdamW update (all the kernels of `update_fn`, profiled on its
     own)."""
     k1, spans, w1, others = _profiled(torch, grads_fn)
     k2, _, w2, _ = _profiled(torch, update_fn)
-    roles = ("split_matmul", "split_matmul_dgrad", "split_matmul_wgrad",
-             "flash_attention", "flash_attention_bwd") + (
-                 ("split_matmul_acc",) if acc else ())
     if not k1 or not all(spans.get(r, 0.0) > 0 for r in roles):
         _fail(f"profiler: no device time for some kernel role: {spans}")
     out = {r: spans[r] for r in roles}
@@ -1542,7 +1711,8 @@ def grad_check(torch, model, params, batch, n_layers) -> dict:
     model (same weights, same batch) through the kernels against the
     plain versions on the card, within 4x the plain versions' own
     reordering noise (their sums in another order: one fp32 product per
-    forward matmul, 256-row attention blocks), and at least GRAD_TOL of
+    forward matmul, 256-row attention blocks, an SSD chunk of
+    SSD_CHUNK_FLOOR), and at least GRAD_TOL of
     a leaf's norm (the kernels round P and dS to bf16 as tensor-core
     operands where the plain versions keep fp32, and every leaf is bf16:
     one ulp is 2^-8 = 0.4 percent) or 1e-3 of the loss; a leaf's check
@@ -1554,7 +1724,8 @@ def grad_check(torch, model, params, batch, n_layers) -> dict:
          for k, v in params.items()}
     runs = {}
     for name, ctx in (("plain", plain_versions()),
-                      ("reordered", plain_versions(bk=None, bq=256)),
+                      ("reordered", plain_versions(
+                          bk=None, bq=256, ssd_chunk=SSD_CHUNK_FLOOR)),
                       ("kernel", contextlib.nullcontext())):
         with ctx:
             loss, _, grads = loss_and_grads(cut, p, batch)
@@ -1597,7 +1768,8 @@ def _layer_products(model) -> list:
     plain and chunked products, as in the JAX package).  A single
     segment is one product named by its path; an input-dim split one
     named sum of a launch a segment; an output-dim split a named product
-    a segment."""
+    a segment.  The SSD block's w_zx, w_bcdt and wo take attention's
+    place; a model without an FFN has no more."""
     lay = model.pset.layouts
 
     def seg(path):
@@ -1608,9 +1780,15 @@ def _layer_products(model) -> list:
             return [("split_matmul", path, len(lo.segments))]
         return [("split_matmul", path + sg.key, 1) for sg in lo.segments]
 
-    out = [p for w in ("wq", "wk", "wv", "wo")
-           for p in seg(f"layers/attn/{w}")]
     cfg = model.cfg
+    if cfg.has_attention:
+        out = [p for w in ("wq", "wk", "wv", "wo")
+               for p in seg(f"layers/attn/{w}")]
+    else:                      # the SSD block's projections
+        out = [p for w in ("w_zx", "w_bcdt", "wo")
+               for p in seg(f"layers/ssm/{w}")]
+    if not cfg.d_ff:
+        return out
     g = model._split_g("layers.ffn_w13")
     if lay["layers/ffn/w13"].is_split or lay["layers/ffn/w2"].is_split:
         out += seg("layers/ffn/w13") + seg("layers/ffn/w2")
@@ -1628,8 +1806,9 @@ def _want_train_launches(built, steps, S) -> tuple:
     the layer's remat recomputes it (all of them under full remat; under
     a selective policy those whose tag it does not keep), and one dgrad
     and one wgrad; the head one product a CE chunk and, chunked, its
-    recompute; attention one forward (again under any remat: it carries
-    no tag) and one backward a layer; all of it once a microbatch.  A
+    recompute; attention, or the SSD block's scan, one forward (again
+    under any remat: it carries no tag) and one backward a layer; all of
+    it once a microbatch.  A
     tied head's forward reads the embedding as stored ("nt", as the
     layers' dgrad) and its dgrad is "nn" (as the layers' forward); every
     wgrad is "tn".  Layouts are returned for the tied head only (None
@@ -1656,9 +1835,10 @@ def _want_train_launches(built, steps, S) -> tuple:
             "split_matmul_acc": layer_fwd["split_matmul_acc"],
             "split_matmul_dgrad": layer_bwd + head,
             "split_matmul_wgrad": layer_bwd + head,
-            "flash_attention": nL * (2 if remat else 1),
-            "flash_attention_bwd": nL,
-            "ssd_scan": 0}
+            "flash_attention": nL * (2 if remat else 1) * cfg.has_attention,
+            "flash_attention_bwd": nL * cfg.has_attention,
+            "ssd_scan": nL * (2 if remat else 1) * cfg.has_ssm,
+            "ssd_scan_bwd": nL * cfg.has_ssm}
     layouts = ({"nn": sum(layer_fwd.values()) + head,
                 "nt": layer_bwd + head_fwd,
                 "tn": layer_bwd + head} if cfg.tie_embeddings else None)
@@ -1677,15 +1857,27 @@ def _check_persistent_roles(variants: dict, what: str) -> None:
               f"design: {off} (all by design: {variants})")
 
 
-def _want_product_counts(built, steps) -> dict:
+def _want_product_counts(built, steps, S) -> dict:
     """Tagged products computed in `steps` steps, by tag: once a layer in
-    the forward, and again unless the layer's remat keeps the tag."""
-    model = built.model
-    nL = steps * max(1, built.run.microbatch) * model.cfg.n_layers
+    the forward, and again unless the layer's remat keeps the tag; an
+    untied head's ("head/out", one product or one sum of its segments)
+    once a CE chunk and, chunked, again in the chunk's recompute."""
+    from repro_torch.models import transformer as tm
+    model, cfg = built.model, built.model.cfg
+    n = steps * max(1, built.run.microbatch)
+    nL = n * cfg.n_layers
     remat = model.remat
-    return {tag: nL * (1 + (remat is True or (isinstance(remat, tuple)
-                                              and tag not in remat)))
-            for _, tag, _ in _layer_products(model) if tag}
+    out = {tag: nL * (1 + (remat is True or (isinstance(remat, tuple)
+                                             and tag not in remat)))
+           for _, tag, _ in _layer_products(model) if tag}
+    if not cfg.tie_embeddings:
+        lo = model.pset.layouts["head/out"]
+        if len(lo.segments) > 1 and lo.spec.zdp_axis != 0:
+            raise NotImplementedError("an output-split untied head")
+        chunked = (S % tm.CE_CHUNK == 0 and S > tm.CE_CHUNK
+                   and S * cfg.padded_vocab >= tm.CE_MIN_ELEMS)
+        out["head/out"] = n * (2 * S // tm.CE_CHUNK if chunked else 1)
+    return out
 
 
 def train_phase(torch, args) -> dict:
@@ -1800,7 +1992,10 @@ def train_phase(torch, args) -> dict:
     out["profile_step"] = prof = profile_step(
         torch, lambda: got.update(g=loss_and_grads(model, pp, batch)[2]),
         lambda: apply_update(AdamWConfig(), pp, got["g"], opt, 1.0),
-        acc=want["split_matmul_acc"] > 0)
+        roles=[r for r in ("split_matmul", "split_matmul_acc",
+                           "split_matmul_dgrad", "split_matmul_wgrad",
+                           "flash_attention", "flash_attention_bwd")
+               if want[r] > 0])
     del got, pp, opt
     print("  profiled step (device ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in prof.items() if k != "top_plain_ops"))
@@ -1823,6 +2018,155 @@ def train_phase(torch, args) -> dict:
     out["checkpoint"] = checkpoint_round_trip(torch, args, built, params)
     torch.cuda.empty_cache()
     out["sharded"] = sharded_phase(torch, args, built, params, out)
+    return out
+
+
+def ssm_plan(args):
+    """(plan, built) of mamba2-2.7b's step: `osdp` for train_4k at global
+    batch 8 on a 1x1 mesh with 64 GiB and the h100-sxm preset
+    (checkpointing "selective", as phase 6), built without weights at
+    full width, depth cut by --layers."""
+    from repro_torch.configs import (DeviceInfo, MeshConfig, RunConfig,
+                                     get_arch, get_shape)
+    from repro_torch.core.api import osdp
+    from repro_torch.models.registry import build_model
+    cfg_full = get_arch(SSM_TRAIN_ARCH)
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=TRAIN_BATCH)
+    mesh = MeshConfig((1, 1), ("data", "model"))
+    plan = osdp(cfg_full, shape, mesh, memory_limit_gib=64.0,
+                device=DeviceInfo.preset("h100-sxm"),
+                checkpointing="selective")
+    cfg = cfg_full
+    if args.layers and args.layers < cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    run = RunConfig(model=cfg, shape=shape, mesh=mesh, osdp=plan.run.osdp)
+    return plan, build_model(run, plan)
+
+
+def ssm_products(built) -> list:
+    """(path, rows, K, N) of every distinct forward product of the SSM
+    step: each segment of w_zx, w_bcdt and wo at B x S rows, of the
+    untied head at a CE chunk (B x 512 rows)."""
+    from repro_torch.models import transformer as tm
+    shape = built.run.shape
+    rows = shape.global_batch * shape.seq_len
+    out = []
+    for path, M in (("layers/ssm/w_zx", rows), ("layers/ssm/w_bcdt", rows),
+                    ("layers/ssm/wo", rows),
+                    ("head/out", shape.global_batch * tm.CE_CHUNK)):
+        lo = built.model.pset.layouts[path]
+        K, N = lo.spec.shape[-2:]
+        ax = lo.spec.zdp_axis - lo.spec.stacked
+        for size in sorted({sg.size for sg in lo.segments}):
+            out.append((path, M, size if ax == 0 else K,
+                        size if ax == 1 else N))
+    return out
+
+
+def ssm_train_phase(torch, args, plan, built) -> dict:
+    """Train mamba2-2.7b (the SSM family) at full width and depth under
+    the 64 GiB plan: a 2-layer gradient check against the plain versions
+    (the scan's backward `ref.ssd_scan_bwd_ref` included), a repeated
+    forward + backward bit-identical, then TRAIN_STEPS steps through
+    `train()` with the launch counts zeroed just before and read just
+    after (every product through `split_matmul`'s roles, `ssd_scan` once
+    a layer and again under remat, `ssd_scan_bwd` once a layer: any
+    other count fails), and one more step under the profiler by bucket.
+    MFU counts 6 N tokens plus the scan's own operations, forward and
+    backward (`ssd_flops`)."""
+    from repro_torch.data.synthetic import Dataset
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig, apply_update, init_state
+    from repro_torch.train.loop import loss_and_grads, train
+    print(plan.summary())
+    for op, dec in plan.decisions.items():
+        print(f"  {op}: modes {dec.modes} remat {dec.remat}")
+    model, cfg, run = built.model, built.model.cfg, built.run
+    B, S = run.shape.global_batch, run.shape.seq_len
+    if cfg.n_layers < plan.run.model.n_layers:
+        print(f"depth cut: {cfg.n_layers} of {plan.run.model.n_layers} "
+              f"layers")
+    print(f"train {SSM_TRAIN_ARCH}: remat {model.remat}, microbatch "
+          f"{run.microbatch}, batch {B} x seq {S}")
+    params = built.init(args.seed, "cuda")
+    n_params = sum(p.numel() for p in params.values())
+    ds = Dataset(cfg, run.shape, seed=args.seed)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in ds.global_batch(0).items()}
+    check = grad_check(torch, model, params, batch,
+                       min(GRAD_LAYERS, cfg.n_layers))
+    torch.cuda.empty_cache()
+    first = loss_and_grads(model, params, batch)
+    again = loss_and_grads(model, params, batch)
+    if not (torch.equal(first[0], again[0]) and all(
+            torch.equal(first[2][k], again[2][k]) for k in params)):
+        _fail(f"train {SSM_TRAIN_ARCH}: two forward + backward passes of "
+              f"one batch differ")
+    del first, again, params       # train() draws the same weights
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = train(built, TRAIN_STEPS, seed=args.seed, warmup=1, device="cuda",
+                log_every=1)
+    counts = ops.launch_counts()
+    products = dict(ops.product_counts)
+    variants = ops.split_matmul_variant_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in res.losses):
+        _fail(f"train {SSM_TRAIN_ARCH}: non-finite loss {res.losses}")
+    _check_persistent_roles(variants, f"train {SSM_TRAIN_ARCH}")
+    want, _ = _want_train_launches(built, TRAIN_STEPS, S)
+    want_p = _want_product_counts(built, TRAIN_STEPS, S)
+    if counts != want or products != want_p:
+        _fail(f"train {SSM_TRAIN_ARCH}: launches {counts}, tagged products "
+              f"{products}; the plan's steps need {want} and {want_p}")
+    tokens = B * S
+    fwd, bwd = ssd_flops(B, S, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state, cfg.ssm_chunk)
+    flops = 6.0 * n_params * tokens + cfg.n_layers * (fwd + bwd)
+    steady = sorted(res.step_ms[1:]) or res.step_ms
+    step_ms = steady[len(steady) // 2]
+    out = dict(arch=SSM_TRAIN_ARCH, n_layers=cfg.n_layers,
+               params_b=n_params / 1e9, batch=B, seq=S,
+               remat=str(model.remat), microbatch=run.microbatch,
+               steps=res.steps, losses=res.losses,
+               grad_norms=res.grad_norms, step_ms=res.step_ms,
+               median_step_ms=step_ms, tokens_per_step=tokens,
+               tokens_per_s=tokens / (step_ms / 1e3),
+               model_flops_per_step=flops, ssd_flops_per_step=cfg.n_layers
+               * (fwd + bwd), mfu=flops / (PEAK_BF16 * step_ms / 1e3),
+               peak_mem_gib=peak, launches=counts, products=products,
+               split_matmul_variants=variants, grad_check=check,
+               plan_est_step_ms=plan.cost.time * 1e3,
+               plan_est_mem_gib=plan.cost.memory / 2**30)
+    for i, (l, g, ms) in enumerate(zip(res.losses, res.grad_norms,
+                                       res.step_ms)):
+        print(f"  step {i}: loss {l:.4f} grad_norm {g:.4f} {ms:.1f} ms "
+              f"({tokens / (ms / 1e3):.0f} tok/s)")
+    # one more step under the profiler, by bucket, on the trained weights
+    pp = res.params
+    del res
+    torch.cuda.empty_cache()
+    opt = init_state(pp)
+    got = {}
+    out["profile_step"] = prof = profile_step(
+        torch, lambda: got.update(g=loss_and_grads(model, pp, batch)[2]),
+        lambda: apply_update(AdamWConfig(), pp, got["g"], opt, 1.0),
+        roles=("split_matmul", "split_matmul_dgrad", "split_matmul_wgrad",
+               "ssd_scan", "ssd_scan_bwd"))
+    del got, pp, opt
+    print("  profiled step (device ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in prof.items() if k != "top_plain_ops"))
+    print("  plain-torch ops with the most device time (ms, calls): "
+          + "; ".join(f"{r['name']} {r['ms']:.2f} x{r['count']}"
+                      for r in prof["top_plain_ops"]))
+    print(f"train {SSM_TRAIN_ARCH}: {out['steps']} steps, median step "
+          f"{step_ms:.1f} ms, {out['tokens_per_s']:.0f} tok/s, MFU "
+          f"{out['mfu']:.3f}, peak {peak:.2f} GiB; launches {counts}; "
+          f"split_matmul by role and design {variants}")
     return out
 
 
@@ -1865,7 +2209,7 @@ def _train_run(torch, built, steps, params, seed, what, S,
                             f"train {what}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     want, _ = _want_train_launches(built, steps, S)
-    want_p = _want_product_counts(built, steps)
+    want_p = _want_product_counts(built, steps, S)
     if counts != want or products != want_p or not all(
             math.isfinite(x) for x in res.losses):
         _fail(f"train {what}: launches {counts} (the plan's steps need "
@@ -2721,6 +3065,75 @@ def main(argv=None) -> int:
           f"bit-identically")
     torch.cuda.empty_cache()
 
+    # 5b. the SSM family's step (mamba2-2.7b at batch 8 x 4096): the scan
+    # forward and its backward, and split_matmul's roles at its products
+    ssm_plan_, ssm_built = ssm_plan(args)
+    nh, hd, ns, chunk = (mam.ssm_n_heads, mam.ssm_head_dim, mam.ssm_state,
+                         mam.ssm_chunk)
+    ssd_train = check_ssd(torch, TRAIN_BATCH, 4096, gen, nh, hd, ns, chunk)
+    torch.cuda.empty_cache()
+    ssd_bwd = [check_ssd_bwd(torch, gen, TRAIN_BATCH, 4096, nh, hd, ns,
+                             chunk)]
+    torch.cuda.empty_cache()
+    ssd_bwd += [check_ssd_bwd(torch, gen, 1, prompt_rows, nh, hd, ns, chunk,
+                              autograd=True),
+                check_ssd_bwd(torch, gen, 1, 512, nh, hd, ns, chunk,
+                              dfin=True)]
+    for B_, S_, dt_, dfin_, init_, _ in SSD_BWD_CASES:
+        check_ssd_bwd(torch, gen, B_, S_, nh, hd, ns, chunk,
+                      dtype=getattr(torch, dt_), dfin=dfin_, init=init_,
+                      timed=False)
+    bwd_ssd_design = check_ssd_bwd_design(torch, gen, TRAIN_BATCH, 4096, nh,
+                                          hd, ns, chunk)
+    torch.cuda.empty_cache()
+    r = ssd_train
+    print(f"  ssd_scan        {str(r['shape']):26s} err {r['max_abs_err']:.3g}"
+          f", of 1 + |ref| {r['max_scaled_err']:.3g} (tol {SSD_TOL}) kernel "
+          f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f}), plain "
+          f"{r['plain_ms']:.4f} ms, library none, bound {r['bound_ms']:.4f} "
+          f"ms ({r['bound_by']}); workspace {r['workspace_bytes'] / 1e6:.1f}"
+          f" MB")
+    for r in ssd_bwd:
+        print(f"  ssd_scan_bwd    {str(r['shape']):26s} dfin {r['dfin']}: "
+              + ", ".join(f"{n} {r['rel_errs'][n]:.3g} (floor "
+                          f"{r['floors'][n]:.2g}, tol {r['tols'][n]:.2g})"
+                          for n in SSD_BWD_NAMES)
+              + (", autograd of the plain scan " + ", ".join(
+                  f"{n} {v:.3g}" for n, v in r["autograd_errs"].items())
+                 if r["autograd_errs"] else "")
+              + f"; kernel {r['ms']:.4f} ms (eager {r['eager_ms']:.4f}), "
+              f"plain {r['plain_ms']:.4f} ms, library none, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); workspace "
+              f"{r['workspace_bytes'] / 1e6:.1f} MB")
+    print(f"  ssd_scan_bwd: no spills ("
+          + "; ".join(bwd_ssd_design["ptxas"]) + "); repeated calls "
+          f"bit-identical; {len(SSD_BWD_CASES)} off-path cases ("
+          + "; ".join(c[-1] for c in SSD_BWD_CASES) + f") agree; kernels "
+          f"at {ssd_bwd[0]['shape'][:2]}: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in
+              bwd_ssd_design["kernel_ms"].items()))
+    mm_ssm = []
+    bwd_ssm = {"split_matmul_dgrad": [], "split_matmul_wgrad": []}
+    for path, M, K, N in ssm_products(ssm_built):
+        mm_ssm.append(dict(check_split_matmul(torch, M, K, N, gen),
+                           path=path))
+        for role in ("dgrad", "wgrad"):
+            bwd_ssm[f"split_matmul_{role}"].append(dict(
+                check_matmul_grad(torch, role, M, K, N, gen), path=path))
+    for name, rows_ in [("split_matmul", mm_ssm)] + list(bwd_ssm.items()):
+        for r in rows_:
+            print(f"  {name:19s} {r['path']:18s} {str(r['shape']):22s}"
+                  f"{_plan_text(r)} err {r['max_abs_err']:.3g} kernel "
+                  f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    report["ssd_scan_train"] = ssd_train
+    report["ssd_scan_bwd"] = ssd_bwd
+    report["ssd_scan_bwd_design"] = bwd_ssd_design
+    report["ssm_train_forward"] = mm_ssm
+    report["ssm_train_backward"] = bwd_ssm
+    torch.cuda.empty_cache()
+
     # 3-4. serve each model, then its whole-model logits ----------------------
     serves = {}
     for arch in ARCHS:
@@ -2734,11 +3147,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     shard = trained["sharded"]
 
+    # 6b. train mamba2-2.7b ---------------------------------------------------
+    ssm_trained = ssm_train_phase(torch, args, ssm_plan_, ssm_built)
+    report["train_ssm"] = ssm_trained
+    torch.cuda.empty_cache()
+
     # 8. calibration and the planner against the card ---------------------
     calib = calibrate_phase(torch, args, serves, trained)
     report["calibrate"] = calib
     torch.cuda.empty_cache()
-    paths = dict(serves, train=trained,
+    paths = dict(serves, train=trained, train_ssm=ssm_trained,
                  **{f"train_sharded_{n}": shard[n]["sharded"]
                     for n in ("zdp", "mixed")}, calibrate=calib)
 
@@ -2747,10 +3165,11 @@ def main(argv=None) -> int:
         return sum(s["launches"][name] for s in paths.values())
 
     # every path shape each kernel was checked and timed at
-    checked = {"split_matmul": mm + mm_mam + mm_train + [head_fwd],
+    checked = {"split_matmul": mm + mm_mam + mm_train + [head_fwd] + mm_ssm,
                "split_matmul_acc": acc_train,
-               "flash_attention": fl + fl_train, "ssd_scan": ssd,
-               **bwd}
+               "flash_attention": fl + fl_train,
+               "ssd_scan": ssd + [ssd_train], "ssd_scan_bwd": ssd_bwd,
+               **{k: v + bwd_ssm.get(k, []) for k, v in bwd.items()}}
     checked["split_matmul"] = checked["split_matmul"] + calib["ladder"]
     for name, r in calib["chain"].items():
         checked[name] = checked[name] + [r]
@@ -2788,7 +3207,13 @@ def main(argv=None) -> int:
                dict(entry("flash_attention_bwd",
                           bwd["flash_attention_bwd"][0]),
                     kernel_ms=bwd_design["kernel_ms"],
-                    blocks=bwd_design["blocks"])]
+                    blocks=bwd_design["blocks"]),
+               # the training step's shape, (8, 4096, 80, 64)
+               dict(entry("ssd_scan_bwd", ssd_bwd[0]),
+                    kernels_per_call=bwd_ssd_design["kernels_per_call"],
+                    kernel_ms=bwd_ssd_design["kernel_ms"],
+                    rel_errs=ssd_bwd[0]["rel_errs"],
+                    workspace_bytes=ssd_bwd[0]["workspace_bytes"])]
     report["seconds"] = time.perf_counter() - t_start
     out_path.write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))
@@ -2805,6 +3230,12 @@ def main(argv=None) -> int:
           f"{tr['median_step_ms']:.1f} ms, {tr['tokens_per_s']:.0f} tok/s, "
           f"MFU {tr['mfu']:.4f}, peak {tr['peak_mem_gib']:.2f} GiB, losses "
           + " ".join(f"{x:.4f}" for x in tr["losses"]))
+    st = ssm_trained
+    print(f"train metrics {SSM_TRAIN_ARCH} ({st['n_layers']} layers, "
+          f"{report['card']}): median step {st['median_step_ms']:.1f} ms, "
+          f"{st['tokens_per_s']:.0f} tok/s, MFU {st['mfu']:.4f}, peak "
+          f"{st['peak_mem_gib']:.2f} GiB, losses "
+          + " ".join(f"{x:.4f}" for x in st["losses"]))
     for name in ("remat_true", "selective", "mixed"):
         r = tr[name]
         print(f"train metrics {TRAIN_ARCH} {name} ({report['card']}): "

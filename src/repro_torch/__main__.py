@@ -2,6 +2,7 @@
 
   python -m repro_torch calibrate --cpu --quick --out profile.json
   python -m repro_torch train --arch qwen1.5-0.5b --reduced --cpu --steps 3
+  python -m repro_torch train --arch mamba2-2.7b --reduced --cpu --steps 3
   python -m repro_torch serve --arch qwen1.5-0.5b --reduced --cpu
 
 Each subcommand is the matching `repro_torch.launch.<name>` module,

@@ -956,6 +956,922 @@ int launch(Args a, const Plan& p, void* ws, long long ws_bytes,
                          : launch_chunk<Tin, 128>(a, p, st);
 }
 
+// --- the backward ------------------------------------------------------------
+//
+// ssd_scan_bwd: the gradient of the scan for the cotangents dy (fp32, like
+// y) and d_final_state (or 0) -> dx, ddt, da_log, db, dc.  The Pallas kernel
+// has no VJP (the JAX package differentiates its jnp twin,
+// models/ssm.py::ssd_chunk_scan); this computes that gradient in the
+// chunk-parallel form of ref.ssd_scan_bwd_ref.  With xd = dt x,
+// L_ij = exp(csum_i - csum_j) (i >= j), w_j = exp(last - csum_j),
+// e_i = exp(csum_i), P the chunk's carried state and D the cotangent of the
+// state leaving the chunk:
+//   dS_prev[c] = sum_i e_i dy_i (x) c_i + exp(last_c) D[c],  D[c] = dS_prev[c+1]
+//   dxd_j = sum_{i>=j} CB_ij L_ij dy_i + w_j D b_j
+//   dCB_ij = (dy_i . xd_j) L_ij, summed over heads:
+//   dc = dCB b + sum_h e dy P,  db = dCB^T c + sum_h w xd D
+//   dcsum_i = sum_j Z_ij - sum_j Z_ji + dy_i . y_inter_i - w_i xd_i . D b_i,
+//     Z = dCB_h * CB, plus dlast = sum_j w_j xd_j . D b_j + exp(last) <D, P>
+//     at the chunk's last row; dA = reverse cumsum of dcsum,
+//   ddt = a dA + dxd . x,  dx = dt dxd,  da_log = a sum dA dt.
+//
+// Passes (nine kernels a call, in stream order):
+//  F1, F2. the forward's passes 1 and 2 recompute csum, dt, c b^T and the
+//     carried states (as bf16 terms) into the forward's workspace layout:
+//     recomputed, not saved by the forward, so the training path keeps no
+//     workspace between its forward and its backward.
+//  B1. ssd_bwd_dstate_kernel, grid (nh, chunks, B), 4 warps: dS_y = sum_i
+//     e_i dy_i (x) c_i of each (b, chunk, head), over the chunk's 64-row
+//     tiles, into the chunk-state workspace (the chunk states are dead
+//     after F2).
+//  B2. ssd_bwd_pass_kernel, grid (hd ns / 1024, nh, B), a float4 of the
+//     state a thread, as the forward's pass 2: walks the chunks backwards
+//     from d_final_state: D[c] = g (written over dS_y[c]), g = dS_y[c] +
+//     exp(last_c) g, in fp32; exp(last_c) <D[c], P[c]> as one partial sum a
+//     warp, summed by B4 in a fixed order.
+//  B3. ssd_bwd_chunk_kernel, grid (row tiles, chunks, B), launched once a
+//     role (each role at most 128 registers: two blocks an SM, no spill;
+//     one kernel of all three roles spilled at that cap), 8 warps: warp w
+//     takes rows 16 (w % 4) of the 64-row tile and half w / 4 of each
+//     product's columns; the S1 tiles go in two halves of 32 columns.  A dx block (tile J) walks the
+//     heads: the inter and state terms of its rows, then the row tiles
+//     I >= J: S1 = x_J dy_I^T (times dt_j), dxd_J += (CB L)^T dy_I with the
+//     product's A operand kept in registers; it writes dx, dxd . x (into
+//     ddt) and its rows' dcsum terms per head.  A db block (tile J) walks
+//     the heads: db_J += (x dt w)_J D + (S1 L^T) c_I.  A row block (tile I)
+//     walks the heads: dc_I += e dy_I P, then for J <= I dCB = (dy_I
+//     xd_J^T) L, dc_I += dCB b_J and the row sums of Z.  db and dc sum the
+//     heads in registers in head order: no partials, no atomics.
+//  B4. ssd_bwd_finish_kernel, a thread a (b, chunk, head): dlast, the reverse
+//     cumsum over the chunk's rows, ddt += a dA, and sum dA dt.
+//  B5. ssd_bwd_da_kernel, a thread a head: da_log = a sum over (b, chunk).
+//
+// Every product is mma.sync m16n8k16 on the forward's bf16-term scheme: an
+// fp32 operand (dy, D, P, the products' factors) is cut into N bf16 terms
+// (2 with bf16 inputs, 3 with f32 inputs), an input operand (x, b, c) into
+// Prec<Tin>::NI (1: exact bf16; 3 for f32), and the term pairs whose indices
+// sum to at most N - 1 are summed in fp32.  Each tile is held in shared
+// memory as its bf16-term planes (an exact bf16 input copied by cp.async,
+// an fp32 one cut once as it is loaded) and read by ldmatrix, as the
+// forward's tiles; a product's A operand made in registers (S1 L^T, CB L)
+// is cut there.  The backward takes head dim <= 64 (one 64-wide tile) and
+// state <= 128.
+//
+// Bound on an H100 at the training shape (8, 4096, 80, 64), state 128,
+// chunk 256: the inputs (bf16 x, b, c; fp32 dt, dy) and outputs (bf16 dx,
+// db, dc; fp32 ddt) are about 1.40 GB, 0.42 ms at 3.35 TB/s; the least
+// products (the chunk-parallel form, causal halves not counted) about
+// 0.35 TFLOP, 0.35 ms at 989 TFLOP/s.  This first design is far from that
+// (PERF.md): every block walks the heads in turn, each head's tiles loaded
+// and waited for before its products, with no load in flight behind them.
+
+constexpr int NTB = 128;        // threads of the dstate blocks
+constexpr int NTC = 256;        // threads of the chunk blocks
+constexpr int NTP2 = 256;       // threads of the backward state pass
+constexpr int BWD_HD = 64;      // head dims the backward takes (one tile)
+
+// bf16 terms of an fp32 operand (dy, D, P and the products' factors) and
+// the highest term-index sum kept; an input operand takes Prec<Tin>::NI
+template <typename Tin>
+struct BPrec {
+  static constexpr int N = 2, ORD = 1;
+};
+template <>
+struct BPrec<float> {
+  static constexpr int N = 3, ORD = 2;
+};
+
+struct BArgs {
+  Args f;            // the forward's arguments (F1 and F2, the workspace)
+  const float* dy;   // (B, S, nh, hd) f32 dense
+  const float* dfin; // (B, nh, hd, ns) f32 dense or null
+  void* dx;          // (B, S, nh, hd) like x, dense
+  float* ddt;        // (B, S, nh)
+  float* da_log;     // (nh,)
+  void* db;          // (B, S, ns) like b, dense
+  void* dc;
+  float* ws_dcs;     // (B, nc, nh, QP): a column block's dcsum terms
+  float* ws_dcr;     // (B, nc, nh, QP): a row block's
+  float* ws_dlj;     // (B, nc, nh, ntq): sum_j w_j xd_j . D b_j of tile J
+  float* ws_dlr;     // (B, nc, nh, pass_parts): parts of exp(last) <D, P>
+  float* ws_dda;     // (B, nc, nh): sum dA dt of the chunk
+};
+
+// acc[t] (the warp's 16 rows from m0 x n8 tiles n0 / 8 + t, t < nt <= NT,
+// NT even) += A B over K, both operands bf16-term planes in shared memory
+// read by ldmatrix: A stored [m][k] (a_km_layout: [k][m]), B stored [n][k]
+// (b_kn_layout: [k][n]); the term pairs of index sum <= ORD kept
+template <int NA, int NB, int ORD, int NT>
+__device__ __forceinline__ void plane_mm(float (&acc)[NT][4], const bf16* a,
+                                         int pa, int lda, bool a_km_layout,
+                                         const bf16* b, int pb, int ldb,
+                                         bool b_kn_layout, int m0, int K,
+                                         int n0, int nt, int lane) {
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t af[NA][4];
+    ld_a<NA>(af, a, pa,
+             a_km_layout ? a_km(lane, m0, k0, lda) : a_mk(lane, m0, k0, lda),
+             a_km_layout);
+#pragma unroll
+    for (int t = 0; t < NT; t += 2) {
+      if (t >= nt) continue;
+      uint32_t b0[NB][2], b1[NB][2];
+      ld_b<NB>(b0, b1, b, pb,
+               b_kn_layout ? b_kn(lane, k0, n0 + 8 * t, ldb)
+                           : b_nk(lane, k0, n0 + 8 * t, ldb),
+               b_kn_layout);
+      mma_terms<NA, NB, ORD>(acc[t], af, b0);
+      if (t + 1 < nt) mma_terms<NA, NB, ORD>(acc[t + 1], af, b1);
+    }
+  }
+}
+
+// acc += A B over 32 columns of A from column k0, A the warp's 16 x 32 in
+// registers in the accumulator layout (4 n8 tiles: the A-fragment layout of
+// two k16 steps) cut into NA terms, B planes stored [k][n]
+template <int NA, int NB, int ORD, int NT>
+__device__ __forceinline__ void reg_mm(float (&acc)[NT][4],
+                                       const float (&A)[4][4], const bf16* b,
+                                       int pb, int ldb, int k0, int n0,
+                                       int nt, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    uint32_t t0[NA], t1[NA], t2[NA], t3[NA], af[NA][4];
+    split2<NA>(A[2 * kk][0], A[2 * kk][1], t0);
+    split2<NA>(A[2 * kk][2], A[2 * kk][3], t1);
+    split2<NA>(A[2 * kk + 1][0], A[2 * kk + 1][1], t2);
+    split2<NA>(A[2 * kk + 1][2], A[2 * kk + 1][3], t3);
+#pragma unroll
+    for (int u = 0; u < NA; ++u) {
+      af[u][0] = t0[u];
+      af[u][1] = t1[u];
+      af[u][2] = t2[u];
+      af[u][3] = t3[u];
+    }
+#pragma unroll
+    for (int t = 0; t < NT; t += 2) {
+      if (t >= nt) continue;
+      uint32_t b0[NB][2], b1[NB][2];
+      ld_b<NB>(b0, b1, b, pb, b_kn(lane, k0 + 16 * kk, n0 + 8 * t, ldb),
+               true);
+      mma_terms<NA, NB, ORD>(acc[t], af, b0);
+      if (t + 1 < nt) mma_terms<NA, NB, ORD>(acc[t + 1], af, b1);
+    }
+  }
+}
+
+__device__ __forceinline__ void tiles_landed() {
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// bytes of n bf16 planes of a 64-row tile of `cols` columns
+__host__ __device__ constexpr int pl_bytes(int n, int cols) {
+  return 2 * n * T * (cols + LDX);
+}
+// row stride of an fp32 tile
+__host__ __device__ constexpr int ld_f(int cols) { return cols + 4; }
+
+// bytes of the backward's shared memory: the dstate block (exp(csum), e dy
+// and c as planes), and a chunk block, the largest of its roles.  A chunk
+// block's fp32 head holds csum, dt, a row vector, the halves' row sums and
+// the slabs' dlast parts; then a dx block x_J and its phases (c_J, P, dy_J;
+// b_J, D; dy_I, CB), a db block x_J, x_J dt w and its phases (D; dy_I,
+// c_I), or a row block dy_I, e dy_I and its phases (P; x_J, b_J, CB).  Input
+// tiles take NI planes, fp32 ones (dy, D, P) NF.
+__host__ __device__ inline int bwd_dstate_bytes(int QP, int NSP, int ni,
+                                                int nf) {
+  return 4 * QP + pl_bytes(nf, BWD_HD) + pl_bytes(ni, NSP);
+}
+__host__ __device__ inline int bwd_chunk_bytes(int QP, int NSP, int ni,
+                                               int nf) {
+  const int cb = 4 * T * ld_f(T);
+  const int xi = pl_bytes(ni, BWD_HD), xf = pl_bytes(nf, BWD_HD);
+  const int si = pl_bytes(ni, NSP), sf = pl_bytes(nf, NSP);
+  const int m1 = si + sf + xf, m2 = si + sf, m3 = xf + cb;
+  const int dx = xi + (m1 > m2 ? (m1 > m3 ? m1 : m3) : (m2 > m3 ? m2 : m3));
+  const int db = xi + xf + (sf > xf + si ? sf : xf + si);
+  const int row = 2 * xf + (sf > xi + si + cb ? sf : xi + si + cb);
+  const int most = dx > db ? (dx > row ? dx : row) : (db > row ? db : row);
+  return 4 * (2 * QP + 6 * T) + most;
+}
+
+// a value of a tile held as N bf16 planes: the sum of its terms
+template <int N>
+__device__ __forceinline__ float plane_val(const bf16* pl, int plane,
+                                           int off) {
+  float v = 0.f;
+#pragma unroll
+  for (int t = N - 1; t >= 0; --t) v += __bfloat162float(pl[t * plane + off]);
+  return v;
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+template <typename E>
+__device__ __forceinline__ void store_val(E* p, float v);
+template <>
+__device__ __forceinline__ void store_val<float>(float* p, float v) {
+  *p = v;
+}
+template <>
+__device__ __forceinline__ void store_val<bf16>(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// the warp's accumulator element e (0..3) of n8 tile t: row, column
+__device__ __forceinline__ int acc_row(int m0, int lane, int e) {
+  return m0 + (lane >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int acc_col(int t, int lane, int e) {
+  return 8 * t + 2 * (lane & 3) + (e & 1);
+}
+
+// whether one head's rows of dy take 16-byte loads
+__device__ __forceinline__ bool vec_dy(const BArgs& A) {
+  return (uintptr_t)A.dy % 16 == 0 && (A.f.hd * 4) % 16 == 0;
+}
+
+// --- B1: dS_y of each (b, chunk, head) ----------------------------------------
+
+template <typename Tin>
+__global__ void __launch_bounds__(NTB) ssd_bwd_dstate_kernel(const BArgs A) {
+  constexpr int NI = Prec<Tin>::NI, NF = BPrec<Tin>::N;
+  constexpr int ORD = BPrec<Tin>::ORD;
+  const Args& a = A.f;
+  extern __shared__ float4 smem4[];
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const int h = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
+  if (h >= a.nh || c >= d.nc || bi >= a.B) return;
+  const long long s0 = (long long)c * d.Q;
+  const int n = (int)(a.S - s0 < d.Q ? a.S - s0 : d.Q);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int LX = BWD_HD + LDX, PX = T * LX, LB = d.NSP + LDX, PB = T * LB;
+  const int nts = d.NSP / 8;
+  float* es = reinterpret_cast<float*>(smem4);   // [QP] exp(csum)
+  bf16* dye = reinterpret_cast<bf16*>(es + d.QP);   // NF x [T][LX]: e dy
+  bf16* ct = dye + NF * PX;                         // NI x [T][LB]: c
+  const long long at = ((long long)bi * d.nc + c) * a.nh + h;
+  for (int j = tid; j < d.QP; j += NTB) es[j] = expf(a.ws_cs[at * d.QP + j]);
+  const long long rs_y = (long long)a.nh * a.hd;
+  const float* DY = A.dy + ((long long)bi * a.S + s0) * rs_y +
+                    (long long)h * a.hd;
+  const Tin* C = static_cast<const Tin*>(a.c) + bi * a.c_sb + s0 * a.c_ss;
+  const bool vdy = vec_dy(A);
+  float acc[16][4] = {};
+  for (int i0 = 0; i0 < n; i0 += T) {
+    __syncthreads();              // es is in; the last tile's planes are read
+    load_planes<float, NF>(dye, PX, LX, DY + i0 * rs_y, rs_y, T, BWD_HD,
+                           n - i0, a.hd, vdy, es + i0, tid, NTB);
+    fill_input<Tin>(ct, PB, LB, C + i0 * a.c_ss, a.c_ss, T, d.NSP, n - i0,
+                    a.ns, a.vec_c, tid, NTB);
+    tiles_landed();
+    // A(p, i) = e_i dy_ip, stored [i][p]; B(i, k) = c_ik, stored [i][k]
+    plane_mm<NF, NI, ORD, 16>(acc, dye, PX, LX, true, ct, PB, LB, true,
+                              16 * warp, T, 0, nts, lane);
+  }
+  const int g = lane >> 2, q = lane & 3;
+  float* out = a.ws_state + at * a.hd * a.ns;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const int k = 8 * t + 2 * q;
+    if (k >= a.ns) continue;        // ns % 4 == 0: k + 1 < ns too
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int p = 16 * warp + g + 8 * hr;
+      if (p < a.hd)
+        *reinterpret_cast<float2*>(out + (long long)p * a.ns + k) =
+            make_float2(acc[t][2 * hr], acc[t][2 * hr + 1]);
+    }
+  }
+}
+
+// --- B2: the state gradient, backwards over the chunks ----------------------
+
+// partial sums of exp(last) <D, P> a (b, chunk, head): one a warp of each
+// block of the pass
+__host__ __device__ inline int pass_parts(int hd, int ns) {
+  return (hd * ns + 4 * NTP2 - 1) / (4 * NTP2) * (NTP2 / 32);
+}
+
+// grid (hd ns / 1024, nh, B), a float4 of the state a thread, as the
+// forward's pass
+template <typename Tin>
+__global__ void __launch_bounds__(NTP2) ssd_bwd_pass_kernel(const BArgs A) {
+  constexpr int ND = Prec<Tin>::ND;
+  const Args& a = A.f;
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int hdns = a.hd * a.ns;
+  const int e = 4 * (blockIdx.x * NTP2 + threadIdx.x);
+  if (h >= a.nh || bi >= a.B) return;
+  const bool live = e < hdns;
+  const int p = live ? e / a.ns : 0, k = live ? e - p * a.ns : 0;
+  const long long head = (long long)bi * a.nh + h;
+  const int parts = pass_parts(a.hd, a.ns);
+  const int part = blockIdx.x * (NTP2 / 32) + (threadIdx.x >> 5);
+  float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (live && A.dfin != nullptr)
+    g = *reinterpret_cast<const float4*>(A.dfin + head * hdns + e);
+  for (int c = d.nc - 1; c >= 0; --c) {
+    const long long at = ((long long)bi * d.nc + c) * a.nh + h;
+    const float dec = expf(a.ws_cs[at * d.QP + d.QP - 1]);
+    float dot = 0.f;
+    if (live) {
+      float* st = a.ws_state + at * hdns + e;
+      const float4 sy = *reinterpret_cast<const float4*>(st);
+      *reinterpret_cast<float4*>(st) = g;
+      const bf16* sp = a.ws_sp + (at * ND * a.hd + p) * d.NSP + k;
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int t = ND - 1; t >= 0; --t) {
+        const uint2 u = *reinterpret_cast<const uint2*>(
+            sp + (long long)t * a.hd * d.NSP);
+        const float2 lo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 hi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        pv[0] += lo.x;
+        pv[1] += lo.y;
+        pv[2] += hi.x;
+        pv[3] += hi.y;
+      }
+      dot = g.x * pv[0] + g.y * pv[1] + g.z * pv[2] + g.w * pv[3];
+      g.x = fmaf(dec, g.x, sy.x);
+      g.y = fmaf(dec, g.y, sy.y);
+      g.z = fmaf(dec, g.z, sy.z);
+      g.w = fmaf(dec, g.w, sy.w);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if ((threadIdx.x & 31) == 0) A.ws_dlr[at * parts + part] = dec * dot;
+  }
+}
+
+// --- B3: the chunk terms ------------------------------------------------------
+//
+// 8 warps: warp w takes rows 16 (w % 4) of the 64-row tile and half w / 4 of
+// each product's columns (head dims, or state columns); the two halves of a
+// row slab both form its S1 tile, the A operand of the next products, and
+// sum their halves of a row's dot products through shared memory.
+
+// n8 tiles [t0, t0 + nt) of `total` that half `half` of a row slab takes
+struct Cols {
+  int n0, nt;
+  __device__ Cols(int total, int half) {
+    const int per = (total + 1) / 2, t0 = half * per;
+    n0 = 8 * t0;
+    nt = total - t0 < per ? (total - t0 > 0 ? total - t0 : 0) : per;
+  }
+};
+
+// a column block of tile J: with DB its db (summed over the heads), else
+// per head its dx, its part of ddt, its rows' dcsum terms and dlast part
+template <typename Tin, bool DB>
+__device__ __forceinline__ void bwd_columns(const BArgs& A, const Dims& d,
+                                            int J, int c, int bi, int n,
+                                            char* sm) {
+  constexpr int NI = Prec<Tin>::NI, NF = BPrec<Tin>::N;
+  constexpr int ORD = BPrec<Tin>::ORD;
+  const Args& a = A.f;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int slab = warp & 3, half = warp >> 2, m0 = 16 * slab, j0 = J * T;
+  const Cols pc(BWD_HD / 8, half), kc(d.NSP / 8, half);
+  const int LX = BWD_HD + LDX, PX = T * LX, LB = d.NSP + LDX, PB = T * LB;
+  const int LC = ld_f(T);
+  const long long s0 = (long long)c * d.Q;
+  float* cs = reinterpret_cast<float*>(sm);   // [QP] csum of the head
+  float* dv = cs + d.QP;                      // [QP] dt
+  float* rw = dv + d.QP;                      // [T] dt_j w_j of the rows
+  float* red = rw + T;                        // [2][2][T] halves' row sums
+  float* wsum = red + 4 * T;                  // [T] slabs' dlast parts
+  bf16* xs = reinterpret_cast<bf16*>(wsum + T);   // NI x [T][LX] x_J
+  bf16* U = xs + NI * PX;
+  // dx blocks: phase 1a c_J, P, dy_J; phase 1b b_J, D; phase 2 dy_I, CB
+  // db blocks: x_J dt w; phase 1b D; phase 2 dy_I, c_I
+  bf16* xw = U;                               // NF x [T][LX]
+  bf16* V = DB ? U + NF * PX : U;
+  bf16* cj = V;                               // NI x [T][LB]
+  bf16* Ps = cj + NI * PB;                    // NF x [64][LB]
+  bf16* dyj = Ps + NF * PB;                   // NF x [T][LX]
+  bf16* bs = V;                               // NI x [T][LB]
+  bf16* Ds = DB ? V : bs + NI * PB;           // NF x [64][LB]
+  bf16* dyi = V;                              // NF x [T][LX]
+  bf16* ci = dyi + NF * PX;                   // NI x [T][LB]
+  float* cbt = reinterpret_cast<float*>(ci);  // [T][LC] (dx blocks)
+  const int nI = (n + T - 1) / T;
+  const long long rs_y = (long long)a.nh * a.hd;
+  const bool vdy = vec_dy(A);
+  // this chunk's rows of the inputs, formed at each use (kept in no
+  // register across the head loop)
+  auto X = [&] { return static_cast<const Tin*>(a.x) + bi * a.x_sb +
+                        s0 * a.x_ss; };
+  auto Bm = [&] { return static_cast<const Tin*>(a.b) + bi * a.b_sb +
+                         s0 * a.b_ss; };
+  auto C = [&] { return static_cast<const Tin*>(a.c) + bi * a.c_sb +
+                        s0 * a.c_ss; };
+  auto DY = [&] { return A.dy + ((long long)bi * a.S + s0) * rs_y; };
+  auto CB = [&] { return a.ws_cb + ((long long)bi * d.nc + c) * d.QP * d.QP; };
+  const int r0 = acc_row(m0, lane, 0), r1 = r0 + 8;   // the lane's rows
+  const bool quad0 = (lane & 3) == 0;
+  // a row's sum over the head dims: this half's part (quad-summed) to
+  // red[slot][half], then both halves in order
+  auto row_sum = [&](int slot, float v0, float v1) {
+    v0 = quad_sum(v0);
+    v1 = quad_sum(v1);
+    if (quad0) {
+      red[(2 * slot + half) * T + r0] = v0;
+      red[(2 * slot + half) * T + r1] = v1;
+    }
+  };
+  auto both = [&](int slot, int r) {
+    return red[2 * slot * T + r] + red[(2 * slot + 1) * T + r];
+  };
+  float db[8][4] = {};
+
+  for (int h = 0; h < a.nh; ++h) {
+    const long long at = ((long long)bi * d.nc + c) * a.nh + h;
+    __syncthreads();                       // the last head is done with smem
+    copy_async<float>(cs, 0, a.ws_cs + at * d.QP, 0, 1, d.QP, 1, d.QP, tid,
+                      NTC);
+    copy_async<float>(dv, 0, a.ws_dt + at * d.QP, 0, 1, d.QP, 1, d.QP, tid,
+                      NTC);
+    fill_input<Tin>(xs, PX, LX, X() + j0 * a.x_ss + (long long)h * a.hd,
+                    a.x_ss, T, BWD_HD, n - j0, a.hd, a.vec_x, tid, NTC);
+    if constexpr (!DB) {
+      for (int t = 0; t < NF; ++t)
+        copy_async<bf16>(Ps + t * PB, LB,
+                         a.ws_sp + (at * NF + t) * a.hd * d.NSP, d.NSP,
+                         BWD_HD, d.NSP, a.hd, d.NSP, tid, NTC);
+      fill_input<Tin>(cj, PB, LB, C() + j0 * a.c_ss, a.c_ss, T, d.NSP, n - j0,
+                      a.ns, a.vec_c, tid, NTC);
+      load_planes<float, NF>(dyj, PX, LX, DY() + j0 * rs_y + (long long)h * a.hd,
+                             rs_y, T, BWD_HD, n - j0, a.hd, vdy, nullptr, tid,
+                             NTC);
+    }
+    tiles_landed();
+    const float last = cs[d.QP - 1];
+    for (int j = tid; j < T; j += NTC)
+      rw[j] = dv[j0 + j] * expf(last - cs[j0 + j]);
+    float v0 = 0.f, v1 = 0.f;
+    if constexpr (!DB) {
+      // the inter term's dcsum: e_j dy_j . (c_j P^T), this half's head dims
+      float t4[4][4] = {};
+      plane_mm<NI, NF, ORD, 4>(t4, cj, PB, LB, false, Ps, PB, LB, false, m0,
+                               d.NSP, pc.n0, pc.nt, lane);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = t4[t][e] * plane_val<NF>(
+              dyj, PX, acc_row(m0, lane, e) * LX + pc.n0 + acc_col(t, lane, e));
+          if (e < 2) v0 += v; else v1 += v;
+        }
+      row_sum(0, v0, v1);
+    }
+    __syncthreads();                       // phase 1a and rw are done
+    if constexpr (DB)
+      load_planes<Tin, NF>(xw, PX, LX, X() + j0 * a.x_ss + (long long)h * a.hd,
+                           a.x_ss, T, BWD_HD, n - j0, a.hd, a.vec_x, rw, tid,
+                           NTC);
+    else
+      fill_input<Tin>(bs, PB, LB, Bm() + j0 * a.b_ss, a.b_ss, T, d.NSP, n - j0,
+                      a.ns, a.vec_b, tid, NTC);
+    load_planes<float, NF>(Ds, PB, LB, a.ws_state + at * a.hd * a.ns, a.ns,
+                           T, d.NSP, a.hd, a.ns, true, nullptr, tid, NTC);
+    tiles_landed();
+
+    float dxd[4][4] = {};
+    float dw0 = 0.f, dw1 = 0.f, dcs0 = 0.f, dcs1 = 0.f;
+    if constexpr (DB) {
+      // db_J += (x_J dt w) D, this half's state columns
+      plane_mm<NF, NF, ORD, 8>(db, xw, PX, LX, false, Ds, PB, LB, true, m0,
+                               BWD_HD, kc.n0, kc.nt, lane);
+    } else {
+      // the state term: u = b_J D^T; dxd = w u; dw_j w_j = rw_j x_j . u_j
+      plane_mm<NI, NF, ORD, 4>(dxd, bs, PB, LB, false, Ds, PB, LB, false, m0,
+                               d.NSP, pc.n0, pc.nt, lane);
+      const float w0 = expf(last - cs[j0 + r0]);
+      const float w1 = expf(last - cs[j0 + r1]);
+      v0 = v1 = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = dxd[t][e] * plane_val<NI>(
+              xs, PX, acc_row(m0, lane, e) * LX + pc.n0 + acc_col(t, lane, e));
+          if (e < 2) v0 += v; else v1 += v;
+          dxd[t][e] *= e < 2 ? w0 : w1;
+        }
+      row_sum(1, v0, v1);
+      __syncthreads();                     // both halves' sums are in
+      dw0 = both(1, r0) * rw[r0];
+      dw1 = both(1, r1) * rw[r1];
+      dcs0 = both(0, r0) * expf(cs[j0 + r0]) - dw0;
+      dcs1 = both(0, r1) * expf(cs[j0 + r1]) - dw1;
+    }
+
+    if constexpr (!DB) {
+      // this head's rows' dcsum terms so far and dlast part (the intra
+      // terms' column sums are taken off below)
+      float dls = quad0 ? dw0 + dw1 : 0.f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        dls += __shfl_xor_sync(0xffffffffu, dls, o);
+      if (lane == 0 && half == 0) wsum[slab] = dls;
+      if (half == 0 && quad0) {
+        A.ws_dcs[at * d.QP + j0 + r0] = dcs0;
+        A.ws_dcs[at * d.QP + j0 + r1] = dcs1;
+      }
+    }
+
+    // the intra terms, row tiles I >= J, in two halves of 32 columns
+    float zc0 = 0.f, zc1 = 0.f;
+    for (int I = J; I < nI; ++I) {
+      __syncthreads();                     // phase 1 / tile I - 1 is done
+      load_planes<float, NF>(dyi, PX, LX, DY() + (long long)I * T * rs_y +
+                                              (long long)h * a.hd,
+                             rs_y, T, BWD_HD, n - I * T, a.hd, vdy, nullptr,
+                             tid, NTC);
+      if constexpr (DB)
+        fill_input<Tin>(ci, PB, LB, C() + I * T * a.c_ss, a.c_ss, T, d.NSP,
+                        n - I * T, a.ns, a.vec_c, tid, NTC);
+      else
+        copy_async<float>(cbt, LC, CB() + (long long)I * T * d.QP + j0, d.QP,
+                          T, T, T, T, tid, NTC);
+      tiles_landed();
+      const float dt0 = dv[j0 + r0], dt1 = dv[j0 + r1];
+      for (int part = 0; part < 2; ++part) {
+        const int i0 = 32 * part;
+        // S1^T = x_J dy_I^T (rows j, columns i0..i0 + 31), times dt_j below
+        float t16[4][4] = {};
+        plane_mm<NI, NF, ORD, 4>(t16, xs, PX, LX, false, dyi, PX, LX, false,
+                                 m0, BWD_HD, i0, 4, lane);
+        // L^T of the tile (rows j, columns i), 0 above the diagonal
+        auto lmask = [&](int t, int e) {
+          const int ig = I * T + i0 + acc_col(t, lane, e);
+          const int jg = j0 + acc_row(m0, lane, e);
+          return ig >= jg ? expf(cs[ig] - cs[jg]) : 0.f;
+        };
+        if constexpr (DB) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              t16[t][e] *= (e < 2 ? dt0 : dt1) * lmask(t, e);  // dCB^T
+          reg_mm<NF, NI, ORD, 8>(db, t16, ci, PB, LB, i0, kc.n0, kc.nt,
+                                 lane);
+        } else {
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float lm = lmask(t, e);
+              const float cbv = cbt[(i0 + acc_col(t, lane, e)) * LC +
+                                    acc_row(m0, lane, e)];
+              const float z = t16[t][e] * (e < 2 ? dt0 : dt1) * lm * cbv;
+              if (e < 2) zc0 += z; else zc1 += z;
+              t16[t][e] = cbv * lm;        // (CB L)^T
+            }
+          reg_mm<NF, NF, ORD, 4>(dxd, t16, dyi, PX, LX, i0, pc.n0, pc.nt,
+                                 lane);
+        }
+      }
+    }
+    if constexpr (DB) continue;
+
+    // this head's rows: dx = dt dxd, ddt = dxd . x, the column sums
+    Tin* DX = static_cast<Tin*>(A.dx) + ((long long)bi * a.S + s0) * rs_y +
+              (long long)h * a.hd;
+    v0 = v1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jr = acc_row(m0, lane, e), p = pc.n0 + acc_col(t, lane, e);
+        const float v = dxd[t][e] * plane_val<NI>(xs, PX, jr * LX + p);
+        if (e < 2) v0 += v; else v1 += v;
+        if (t < pc.nt && j0 + jr < n && p < a.hd)
+          store_val<Tin>(DX + (j0 + jr) * rs_y + p, dxd[t][e] * dv[j0 + jr]);
+      }
+    zc0 = quad_sum(zc0);
+    zc1 = quad_sum(zc1);
+    __syncthreads();                       // slot 0 of red is free again
+    row_sum(0, v0, v1);
+    __syncthreads();
+    if (half == 0 && quad0) {
+      // the same thread wrote these terms above
+      A.ws_dcs[at * d.QP + j0 + r0] -= zc0;
+      A.ws_dcs[at * d.QP + j0 + r1] -= zc1;
+      float* dd = A.ddt + ((long long)bi * a.S + s0 + j0) * a.nh + h;
+      if (j0 + r0 < n) dd[(long long)r0 * a.nh] = both(0, r0);
+      if (j0 + r1 < n) dd[(long long)r1 * a.nh] = both(0, r1);
+    }
+    if (tid == 0)
+      A.ws_dlj[at * d.ntq + J] = (wsum[0] + wsum[1]) + (wsum[2] + wsum[3]);
+  }
+
+  if constexpr (!DB) return;
+  // db of the tile's rows, summed over the heads
+  Tin* DBt = static_cast<Tin*>(A.db) + ((long long)bi * a.S + s0) * a.ns;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int jr = acc_row(m0, lane, e), k = kc.n0 + acc_col(t, lane, e);
+      if (t < kc.nt && j0 + jr < n && k < a.ns)
+        store_val<Tin>(DBt + (long long)(j0 + jr) * a.ns + k, db[t][e]);
+    }
+}
+
+template <typename Tin>
+__device__ __forceinline__ void bwd_rows(const BArgs& A, const Dims& d, int I,
+                                         int c, int bi, int n, char* sm) {
+  constexpr int NI = Prec<Tin>::NI, NF = BPrec<Tin>::N;
+  constexpr int ORD = BPrec<Tin>::ORD;
+  const Args& a = A.f;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int slab = warp & 3, half = warp >> 2, m0 = 16 * slab, i0 = I * T;
+  const Cols kc(d.NSP / 8, half);
+  const int LX = BWD_HD + LDX, PX = T * LX, LB = d.NSP + LDX, PB = T * LB;
+  const int LC = ld_f(T);
+  const long long s0 = (long long)c * d.Q;
+  float* cs = reinterpret_cast<float*>(sm);   // [QP] csum of the head
+  float* dv = cs + d.QP;                      // [QP] dt
+  float* es = dv + d.QP;                      // [T] e_i of the rows
+  bf16* dyi = reinterpret_cast<bf16*>(es + 6 * T);   // NF x [T][LX] dy_I
+  bf16* dye = dyi + NF * PX;                  // NF x [T][LX] e dy_I
+  bf16* U = dye + NF * PX;
+  bf16* Ps = U;                               // phase 1: NF x [64][LB] P
+  bf16* xs = U;                               // phase 2: x_J, b_J, CB_IJ
+  bf16* bs = xs + NI * PX;
+  float* cbt = reinterpret_cast<float*>(bs + NI * PB);
+  const long long rs_y = (long long)a.nh * a.hd;
+  const bool vdy = vec_dy(A);
+  auto X = [&] { return static_cast<const Tin*>(a.x) + bi * a.x_sb +
+                        s0 * a.x_ss; };
+  auto Bm = [&] { return static_cast<const Tin*>(a.b) + bi * a.b_sb +
+                         s0 * a.b_ss; };
+  auto DY = [&] { return A.dy + ((long long)bi * a.S + s0) * rs_y; };
+  auto CB = [&] { return a.ws_cb + ((long long)bi * d.nc + c) * d.QP * d.QP; };
+  float dc[8][4] = {};
+
+  for (int h = 0; h < a.nh; ++h) {
+    const long long at = ((long long)bi * d.nc + c) * a.nh + h;
+    __syncthreads();
+    for (int i = tid; i < T; i += NTC)
+      es[i] = expf(a.ws_cs[at * d.QP + i0 + i]);
+    copy_async<float>(cs, 0, a.ws_cs + at * d.QP, 0, 1, d.QP, 1, d.QP, tid,
+                      NTC);
+    copy_async<float>(dv, 0, a.ws_dt + at * d.QP, 0, 1, d.QP, 1, d.QP, tid,
+                      NTC);
+    for (int t = 0; t < NF; ++t)
+      copy_async<bf16>(Ps + t * PB, LB,
+                       a.ws_sp + (at * NF + t) * a.hd * d.NSP, d.NSP, BWD_HD,
+                       d.NSP, a.hd, d.NSP, tid, NTC);
+    const float* dyh = DY() + i0 * rs_y + (long long)h * a.hd;
+    load_planes<float, NF>(dyi, PX, LX, dyh, rs_y, T, BWD_HD, n - i0, a.hd,
+                           vdy, nullptr, tid, NTC);
+    __syncthreads();                       // es is in
+    load_planes<float, NF>(dye, PX, LX, dyh, rs_y, T, BWD_HD, n - i0, a.hd,
+                           vdy, es, tid, NTC);
+    tiles_landed();
+    // dc_I += (e dy_I) P, this half's state columns
+    plane_mm<NF, NF, ORD, 8>(dc, dye, PX, LX, false, Ps, PB, LB, true, m0,
+                             BWD_HD, kc.n0, kc.nt, lane);
+
+    float zr0 = 0.f, zr1 = 0.f;
+    for (int J = 0; J <= I; ++J) {
+      __syncthreads();
+      fill_input<Tin>(xs, PX, LX, X() + J * T * a.x_ss + (long long)h * a.hd,
+                      a.x_ss, T, BWD_HD, n - J * T, a.hd, a.vec_x, tid, NTC);
+      fill_input<Tin>(bs, PB, LB, Bm() + J * T * a.b_ss, a.b_ss, T, d.NSP,
+                      n - J * T, a.ns, a.vec_b, tid, NTC);
+      copy_async<float>(cbt, LC, CB() + (long long)i0 * d.QP + J * T, d.QP, T,
+                        T, T, T, tid, NTC);
+      tiles_landed();
+      for (int part = 0; part < 2; ++part) {
+        const int jp = 32 * part;
+        // S1 = dy_I x_J^T (rows i, columns jp..jp + 31), times dt_j below
+        float t16[4][4] = {};
+        plane_mm<NF, NI, ORD, 4>(t16, dyi, PX, LX, false, xs, PX, LX, false,
+                                 m0, BWD_HD, jp, 4, lane);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ir = acc_row(m0, lane, e), jc = jp + acc_col(t, lane, e);
+            const int ig = i0 + ir, jg = J * T + jc;
+            const float lm = ig >= jg ? expf(cs[ig] - cs[jg]) * dv[jg] : 0.f;
+            t16[t][e] *= lm;               // dCB
+            const float z = t16[t][e] * cbt[ir * LC + jc];
+            if (e < 2) zr0 += z; else zr1 += z;
+          }
+        reg_mm<NF, NI, ORD, 8>(dc, t16, bs, PB, LB, jp, kc.n0, kc.nt, lane);
+      }
+    }
+    zr0 = quad_sum(zr0);
+    zr1 = quad_sum(zr1);
+    if (half == 0 && (lane & 3) == 0) {
+      const long long hq = at * d.QP + i0;
+      A.ws_dcr[hq + acc_row(m0, lane, 0)] = zr0;
+      A.ws_dcr[hq + acc_row(m0, lane, 2)] = zr1;
+    }
+  }
+
+  Tin* DC = static_cast<Tin*>(A.dc) + ((long long)bi * a.S + s0) * a.ns;
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ir = acc_row(m0, lane, e), k = kc.n0 + acc_col(t, lane, e);
+      if (t < kc.nt && i0 + ir < n && k < a.ns)
+        store_val<Tin>(DC + (long long)(i0 + ir) * a.ns + k, dc[t][e]);
+    }
+}
+
+// grid (row tiles, chunks, B), launched once a role: ROLE 0 the dx column
+// blocks, 1 the db column blocks, 2 the row blocks; two blocks an SM at
+// bf16 (128 registers); f32, off the training path, needs more registers
+template <typename Tin, int ROLE>
+__global__ void __launch_bounds__(NTC, Prec<Tin>::EXACT ? 2 : 1)
+    ssd_bwd_chunk_kernel(const BArgs A) {
+  extern __shared__ float4 smem4[];
+  const Args& a = A.f;
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const int tile = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
+  const long long s0 = (long long)c * d.Q;
+  const int n = (int)(a.S - s0 < d.Q ? a.S - s0 : d.Q);
+  if (c >= d.nc || bi >= a.B || tile >= d.ntq || tile * T >= n) return;
+  char* sm = reinterpret_cast<char*>(smem4);
+  if constexpr (ROLE == 0)
+    bwd_columns<Tin, false>(A, d, tile, c, bi, n, sm);
+  else if constexpr (ROLE == 1)
+    bwd_columns<Tin, true>(A, d, tile, c, bi, n, sm);
+  else
+    bwd_rows<Tin>(A, d, tile, c, bi, n, sm);
+}
+
+// --- B4, B5: the reverse cumsum, ddt and da_log ------------------------------
+
+__global__ void ssd_bwd_finish_kernel(const BArgs A) {
+  const Args& a = A.f;
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)a.B * d.nc * a.nh) return;
+  const int h = (int)(idx % a.nh), c = (int)((idx / a.nh) % d.nc);
+  const int bi = (int)(idx / ((long long)a.nh * d.nc));
+  const long long s0 = (long long)c * d.Q;
+  const int n = (int)(a.S - s0 < d.Q ? a.S - s0 : d.Q);
+  const float* dlj = A.ws_dlj + idx * d.ntq;
+  const int parts = pass_parts(a.hd, a.ns);
+  float run = 0.f;
+  for (int w = 0; w < parts; ++w) run += A.ws_dlr[idx * parts + w];
+  for (int J = 0; J * T < n; ++J) run += dlj[J];
+  const float Aa = -expf(a.a_log[h]);
+  const float* dcs = A.ws_dcs + idx * d.QP;
+  const float* dcr = A.ws_dcr + idx * d.QP;
+  const float* dtv = a.ws_dt + idx * d.QP;
+  float sum = 0.f;
+  for (int t = n - 1; t >= 0; --t) {
+    run += dcs[t] + dcr[t];
+    float* o = A.ddt + ((long long)bi * a.S + s0 + t) * a.nh + h;
+    *o = fmaf(Aa, run, *o);
+    sum = fmaf(run, dtv[t], sum);
+  }
+  A.ws_dda[idx] = sum;
+}
+
+__global__ void ssd_bwd_da_kernel(const BArgs A) {
+  const Args& a = A.f;
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= a.nh) return;
+  float s = 0.f;
+  for (long long r = 0; r < (long long)a.B * d.nc; ++r)
+    s += A.ws_dda[r * a.nh + h];
+  A.da_log[h] = s * -expf(a.a_log[h]);
+}
+
+// The backward's plan as kernels/ssd_scan.py::plan_bwd gives it
+// (BwdPlan.c_plan): the forward's plan for F1 and F2, then 31 int64.
+struct BwdPlan {
+  Plan fwd;
+  long long grid[5][3];   // B1 dstate, B2 pass, B3 chunk (a role), B4, B5
+  long long threads[5];
+  long long smem[5];
+  long long ws[6];        // floats: fin, dcs, dcr, dlj, dlr, dda
+};
+static_assert(sizeof(BwdPlan) == (22 + 31) * sizeof(long long),
+              "bwd plan layout");
+
+template <typename Tin>
+bool valid_bwd(const BArgs& A, const BwdPlan& p, long long ws_bytes) {
+  const Args& a = A.f;
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  if (a.hd > BWD_HD || p.threads[0] != NTB || p.threads[1] != NTP2 ||
+      p.threads[2] != NTC || p.threads[3] < 1 || p.threads[3] > 1024 ||
+      p.threads[4] < 1 || p.threads[4] > 1024 || p.smem[1] != 0 ||
+      p.smem[3] != 0 || p.smem[4] != 0)
+    return false;
+  constexpr int ni = Prec<Tin>::NI, nf = BPrec<Tin>::N;
+  if (p.smem[0] < bwd_dstate_bytes(d.QP, d.NSP, ni, nf) ||
+      p.smem[2] < bwd_chunk_bytes(d.QP, d.NSP, ni, nf))
+    return false;
+  for (int k = 0; k < 5; ++k) {
+    if (p.smem[k] < 0 || p.smem[k] > MAX_SMEM || p.grid[k][0] < 1 ||
+        p.grid[k][0] > 0x7fffffff)
+      return false;
+    for (int i = 1; i < 3; ++i)
+      if (p.grid[k][i] < 1 || p.grid[k][i] > 65535) return false;
+  }
+  long long need = 0;
+  for (long long f : p.fwd.ws) need += 4 * f;
+  for (long long f : p.ws) {
+    if (f < 0 || f % 4 != 0) return false;
+    need += 4 * f;
+  }
+  return need <= ws_bytes;
+}
+
+template <typename K>
+int launch_smem(K kernel, dim3 grid, int threads, long long smem,
+                cudaStream_t st, const BArgs& A) {
+  if (smem > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, threads, (int)smem, st>>>(A);
+  return (int)cudaGetLastError();
+}
+
+inline dim3 bgrid(const BwdPlan& p, int k) {
+  return dim3((unsigned)p.grid[k][0], (unsigned)p.grid[k][1],
+              (unsigned)p.grid[k][2]);
+}
+
+template <typename Tin>
+int launch_bwd(BArgs A, const BwdPlan& p, void* ws, long long ws_bytes,
+               cudaStream_t st) {
+  Args& a = A.f;
+  if (!valid(a, p.fwd, ws, ws_bytes) || !valid_bwd<Tin>(A, p, ws_bytes))
+    return (int)cudaErrorInvalidValue;
+  a.hg = (int)p.fwd.hg;
+  a.ws_state = static_cast<float*>(ws);
+  a.ws_cb = a.ws_state + p.fwd.ws[0];
+  a.ws_cs = a.ws_cb + p.fwd.ws[1];
+  a.ws_dt = a.ws_cs + p.fwd.ws[2];
+  a.ws_sp = reinterpret_cast<bf16*>(a.ws_dt + p.fwd.ws[3]);
+  float* more = a.ws_dt + p.fwd.ws[3] + p.fwd.ws[4];
+  a.fin = more;
+  A.ws_dcs = a.fin + p.ws[0];
+  A.ws_dcr = A.ws_dcs + p.ws[1];
+  A.ws_dlj = A.ws_dcr + p.ws[2];
+  A.ws_dlr = A.ws_dlj + p.ws[3];
+  A.ws_dda = A.ws_dlr + p.ws[4];
+  const int E = (int)sizeof(Tin);
+  auto al = [](const void* ptr) { return (uintptr_t)ptr % 16 == 0; };
+  a.vec_x = al(a.x) && (a.x_sb * E) % 16 == 0 && (a.x_ss * E) % 16 == 0 &&
+            (a.hd * E) % 16 == 0;
+  a.vec_b = al(a.b) && (a.b_sb * E) % 16 == 0 && (a.b_ss * E) % 16 == 0;
+  a.vec_c = al(a.c) && (a.c_sb * E) % 16 == 0 && (a.c_ss * E) % 16 == 0;
+  a.vec_init = a.init != nullptr && al(a.init);
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  const bool two = (d.HDP / 16) * ((d.NSP + 63) / 64) > 8;
+  int rc = two ? launch_states<Tin, 2>(a, p.fwd, st)
+               : launch_states<Tin, 1>(a, p.fwd, st);
+  if (rc != 0) return rc;
+  ssd_scan_pass_kernel<Tin><<<grid_of(p.fwd, 1), NT2, 0, st>>>(a);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  rc = launch_smem(ssd_bwd_dstate_kernel<Tin>, bgrid(p, 0), NTB, p.smem[0],
+                   st, A);
+  if (rc != 0) return rc;
+  rc = launch_smem(ssd_bwd_pass_kernel<Tin>, bgrid(p, 1), NTP2, 0, st, A);
+  if (rc != 0) return rc;
+  rc = launch_smem(ssd_bwd_chunk_kernel<Tin, 0>, bgrid(p, 2), NTC, p.smem[2],
+                   st, A);
+  if (rc != 0) return rc;
+  rc = launch_smem(ssd_bwd_chunk_kernel<Tin, 1>, bgrid(p, 2), NTC, p.smem[2],
+                   st, A);
+  if (rc != 0) return rc;
+  rc = launch_smem(ssd_bwd_chunk_kernel<Tin, 2>, bgrid(p, 2), NTC, p.smem[2],
+                   st, A);
+  if (rc != 0) return rc;
+  rc = launch_smem(ssd_bwd_finish_kernel, bgrid(p, 3), (int)p.threads[3], 0,
+                   st, A);
+  if (rc != 0) return rc;
+  return launch_smem(ssd_bwd_da_kernel, bgrid(p, 4), (int)p.threads[4], 0, st,
+                     A);
+}
+
 }  // namespace
 
 #define SSD_ENTRY(name, type)                                                 \
@@ -994,6 +1910,48 @@ int launch(Args a, const Plan& p, void* ws, long long ws_bytes,
 
 SSD_ENTRY(ssd_scan_bf16, __nv_bfloat16)
 SSD_ENTRY(ssd_scan_f32, float)
+
+#define SSD_BWD_ENTRY(name, type)                                             \
+  extern "C" int name(                                                        \
+      const void* x, const float* dt, const float* a_log, const void* b,      \
+      const void* c, const float* init, const float* dy, const float* dfin,   \
+      void* dx, float* ddt, float* da_log, void* db, void* dc, int B, int S,  \
+      int nh, int hd, int ns, int chunk, long long x_sb, long long x_ss,      \
+      long long b_sb, long long b_ss, long long c_sb, long long c_ss,         \
+      const long long* plan, void* ws, long long ws_bytes, void* stream) {    \
+    if (plan == nullptr || ws == nullptr) return (int)cudaErrorInvalidValue;  \
+    BArgs A{};                                                                \
+    A.f.x = x;                                                                \
+    A.f.dt = dt;                                                              \
+    A.f.a_log = a_log;                                                        \
+    A.f.b = b;                                                                \
+    A.f.c = c;                                                                \
+    A.f.init = init;                                                          \
+    A.f.B = B;                                                                \
+    A.f.S = S;                                                                \
+    A.f.nh = nh;                                                              \
+    A.f.hd = hd;                                                              \
+    A.f.ns = ns;                                                              \
+    A.f.chunk = chunk;                                                        \
+    A.f.x_sb = x_sb;                                                          \
+    A.f.x_ss = x_ss;                                                          \
+    A.f.b_sb = b_sb;                                                          \
+    A.f.b_ss = b_ss;                                                          \
+    A.f.c_sb = c_sb;                                                          \
+    A.f.c_ss = c_ss;                                                          \
+    A.dy = dy;                                                                \
+    A.dfin = dfin;                                                            \
+    A.dx = dx;                                                                \
+    A.ddt = ddt;                                                              \
+    A.da_log = da_log;                                                        \
+    A.db = db;                                                                \
+    A.dc = dc;                                                                \
+    return launch_bwd<type>(A, *reinterpret_cast<const BwdPlan*>(plan), ws,   \
+                            ws_bytes, static_cast<cudaStream_t>(stream));     \
+  }
+
+SSD_BWD_ENTRY(ssd_scan_bwd_bf16, __nv_bfloat16)
+SSD_BWD_ENTRY(ssd_scan_bwd_f32, float)
 
 #ifdef SSD_TRACE
 // the stamps of pass k (0: states, 1: chunk scan), 8192 blocks x 32

@@ -114,13 +114,17 @@ def lib() -> ctypes.CDLL:
         for fn in (handle.ssd_scan_bf16, handle.ssd_scan_f32):
             fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [
                 ctypes.POINTER(ll), p, ll, p]
+        for fn in (handle.ssd_scan_bwd_bf16, handle.ssd_scan_bwd_f32):
+            fn.argtypes = [p] * 13 + [i] * 6 + [ll] * 6 + [
+                ctypes.POINTER(ll), p, ll, p]
         for fn in (handle.split_matmul_bf16, handle.split_matmul_f32,
                    handle.split_matmul_stream_bf16,
                    handle.split_matmul_wgmma_bf16,
                    handle.split_matmul_persistent_bf16,
                    handle.split_matmul_strided,
                    handle.flash_attention_fwd, handle.flash_attention_bwd,
-                   handle.ssd_scan_bf16, handle.ssd_scan_f32):
+                   handle.ssd_scan_bf16, handle.ssd_scan_f32,
+                   handle.ssd_scan_bwd_bf16, handle.ssd_scan_bwd_f32):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

@@ -5,11 +5,11 @@ launches the hand-written kernel or raises — there is no fallback.
 This replaces the JAX package's `use_pallas()` switch: which version
 runs follows from where the data lives, not from a flag.
 
-`matmul`, `matmul_acc` and `attention` are the differentiable forms
-the model path calls, in training and in serving alike:
-`torch.autograd.Function`s whose forward is the entry point above and
-whose backward is again the kernels (`split_matmul_dgrad` /
-`split_matmul_wgrad`, `flash_attention_bwd`).
+`matmul`, `matmul_acc`, `attention` and `ssd` are the differentiable
+forms the model path calls: `torch.autograd.Function`s whose forward is
+the entry point above and whose backward is again the kernels
+(`split_matmul_dgrad` / `split_matmul_wgrad`, `flash_attention_bwd`,
+`ssd_scan_bwd`).
 
 A product that `sharding.specs.seg_matmul` names (its weight path, the
 JAX package's `checkpoint_name` tag) runs, when gradients are being
@@ -111,6 +111,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                                 init_state=init_state)
     return _ssd.ssd_scan(x, dt, a_log, b, c, chunk=chunk,
                          init_state=init_state)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int, d_final_state: Optional[torch.Tensor] = None,
+                 init_state: Optional[torch.Tensor] = None) -> tuple:
+    """(dx, ddt fp32, da_log fp32, db, dc) of `ssd_scan` for the
+    cotangents dy (fp32, like y) and d_final_state (None: zero)."""
+    ts = (x, dt, a_log, b, c, dy) + tuple(
+        t for t in (d_final_state, init_state) if t is not None)
+    kw = dict(chunk=chunk, d_final_state=d_final_state,
+              init_state=init_state)
+    if _on_cpu(*ts):
+        return ref.ssd_scan_bwd_ref(x, dt, a_log, b, c, dy, **kw)
+    return _ssd.ssd_scan_bwd(x, dt, a_log, b, c, dy, **kw)
 
 
 # --- differentiable forms ---------------------------------------------------
@@ -275,6 +290,37 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _Attention.apply(q, k, v, causal, window, q_offset)
 
 
+class _Ssd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, chunk, init_state):
+        y, fin = ssd_scan(x, dt, a_log, b, c, chunk=chunk,
+                          init_state=init_state)
+        ctx.save_for_backward(x, dt, a_log, b, c, init_state)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(fin)
+        return y, fin
+
+    @staticmethod
+    def backward(ctx, dy, dfin):
+        x, dt, a_log, b, c, init_state = ctx.saved_tensors
+        grads = ssd_scan_bwd(x, dt, a_log, b, c, dy, chunk=ctx.chunk,
+                             d_final_state=dfin, init_state=init_state)
+        return (*grads, None, None)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+        b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+        init_state: Optional[torch.Tensor] = None) -> tuple:
+    """`ssd_scan`, differentiable in x, dt, a_log, b and c: the backward
+    is `ssd_scan_bwd`.  The final state is not differentiated (the
+    training path drops it); an `init_state` is taken as a constant and
+    refused when it needs a gradient."""
+    if init_state is not None and init_state.requires_grad:
+        raise NotImplementedError("ssd: the gradient of init_state is not "
+                                  "computed; pass it detached")
+    return _Ssd.apply(x, dt, a_log, b, c, chunk, init_state)
+
+
 def _split_tally(of) -> Dict[str, int]:
     """`split_matmul`'s launches summed by `of(role, layout, variant)`."""
     out: Dict[str, int] = {}
@@ -292,7 +338,8 @@ def launch_counts() -> Dict[str, int]:
             "split_matmul_wgrad": role.get("wgrad", 0),
             "flash_attention": _flash.launches,
             "flash_attention_bwd": _flash.bwd_launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches,
+            "ssd_scan_bwd": _ssd.bwd_launches}
 
 
 def split_matmul_variant_counts() -> Dict[str, int]:
@@ -313,4 +360,4 @@ def reset_launch_counts() -> None:
     _split.counts.clear()
     product_counts.clear()
     _flash.launches = _flash.bwd_launches = 0
-    _ssd.launches = 0
+    _ssd.launches = _ssd.bwd_launches = 0

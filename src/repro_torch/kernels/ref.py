@@ -222,6 +222,101 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y, s
 
 
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor, *,
+                     chunk: int, d_final_state: Optional[torch.Tensor] = None,
+                     init_state: Optional[torch.Tensor] = None) -> tuple:
+    """The gradient of `ssd_scan_ref` in the chunk-parallel form the
+    CUDA backward computes, written out (not autograd).  dy (fp32, like
+    y) and d_final_state (None: zero) are the cotangents of y and of the
+    final state; `init_state` (no gradient taken) is the forward's.
+    -> (dx in x's dtype, ddt fp32, da_log fp32, db and dc in b's dtype).
+
+    With xd = dt x, L_ij = exp(csum_i - csum_j) (i >= j, else 0),
+    w_j = exp(last - csum_j), e_i = exp(csum_i), P the carried state
+    S_prev of the chunk and D the cotangent of the state leaving it:
+      dS_prev[n] = sum_i e_i dy_i (x) c_i + exp(last_n) D[n],
+      D[n] = dS_prev[n + 1] (D[last chunk] = d_final_state);
+      dxd_j = sum_i CB_ij L_ij dy_i + w_j D b_j;
+      dCB_ij = (dy_i . xd_j) L_ij summed over heads -> dc = dCB b
+      + e (dy P), db = dCB^T c + w (xd D);
+      dcsum_i = sum_j Z_ij - sum_j Z_ji (Z = dCB_h * CB) + dy_i . y_inter_i
+      - w_i (xd_i . D b_i), plus dlast = sum_j w_j (xd_j . D b_j)
+      + exp(last) <D, P> at the chunk's last row;
+      dA = reverse cumsum of dcsum, ddt = dA a + dxd . x, dx = dt dxd,
+      da_log = sum dA dt a."""
+    B, S, nh, hd = x.shape
+    ns = b.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    pad_seq = lambda t: torch.nn.functional.pad(
+        t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+    xr = pad_seq(x).reshape(B, nc, Q, nh, hd)
+    dtc = pad_seq(dt).reshape(B, nc, Q, nh)           # 0 past S
+    bc = pad_seq(b).reshape(B, nc, Q, ns)
+    cc = pad_seq(c).reshape(B, nc, Q, ns)
+    dyc = pad_seq(dy).reshape(B, nc, Q, nh, hd)
+    a = -torch.exp(a_log.float())
+    xd = xr * dtc[..., None]
+    csum = torch.cumsum(dtc * a, dim=2)               # (B,nc,Q,nh)
+    last = csum[:, :, -1]                             # flat past S
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    L = torch.exp((csum[:, :, :, None] - csum[:, :, None])
+                  .masked_fill(~mask[None, None, :, :, None], float("-inf")))
+    cb = torch.einsum("bnis,bnjs->bnij", cc, bc)
+    w = torch.exp(last[:, :, None] - csum)            # (B,nc,Q,nh)
+    e = torch.exp(csum)
+
+    # the carried states, as the forward makes them
+    s_loc = torch.einsum("bnjs,bnjh,bnjhd->bnhds", bc, w, xd)
+    s = (init_state.float() if init_state is not None
+         else torch.zeros(B, nh, hd, ns, device=x.device))
+    prev = []
+    for n in range(nc):
+        prev.append(s)
+        s = s * torch.exp(last[:, n])[..., None, None] + s_loc[:, n]
+    P = torch.stack(prev, dim=1)                      # (B,nc,nh,hd,ns)
+
+    # the state gradient, backwards over the chunks
+    ds_y = torch.einsum("bnih,bnihd,bnis->bnhds", e, dyc, cc)
+    g = (d_final_state.float() if d_final_state is not None
+         else torch.zeros(B, nh, hd, ns, device=x.device))
+    dst = [None] * nc
+    for n in reversed(range(nc)):
+        dst[n] = g
+        g = ds_y[:, n] + torch.exp(last[:, n])[..., None, None] * g
+    D = torch.stack(dst, dim=1)                       # (B,nc,nh,hd,ns)
+    dlast = torch.exp(last) * (D * P).sum((-2, -1))   # (B,nc,nh)
+
+    # within the chunk: the quadratic form as an attention backward
+    dcb_h = torch.einsum("bnihd,bnjhd->bnijh", dyc, xd) * L
+    z = dcb_h * cb[..., None]
+    dcsum = z.sum(3) - z.sum(2)
+    dxd = torch.einsum("bnij,bnijh,bnihd->bnjhd", cb, L, dyc)
+    dcb = dcb_h.sum(-1)
+    dc = torch.einsum("bnij,bnjs->bnis", dcb, bc) + torch.einsum(
+        "bnih,bnihd,bnhds->bnis", e, dyc, P)
+    db = torch.einsum("bnij,bnis->bnjs", dcb, cc)
+    y_inter = torch.einsum("bnis,bnih,bnhds->bnihd", cc, e, P)
+    dcsum = dcsum + (dyc * y_inter).sum(-1)
+    # the chunk's state: S_loc = sum_j w_j xd_j (x) b_j
+    u = torch.einsum("bnjs,bnhds->bnjhd", bc, D)      # D b_j
+    dxd = dxd + w[..., None] * u
+    db = db + torch.einsum("bnjh,bnjhd,bnhds->bnjs", w, xd, D)
+    dww = (xd * u).sum(-1) * w                        # dw_j w_j
+    dcsum = dcsum - dww
+    dcsum[:, :, -1] += dlast + dww.sum(2)
+
+    dA = torch.flip(torch.cumsum(torch.flip(dcsum, [2]), 2), [2])
+    ddt = dA * a + (dxd * xr).sum(-1)
+    dx = dxd * dtc[..., None]
+    da_log = (dA * dtc).sum((0, 1, 2)) * a
+    unpad = lambda t: t.reshape(B, nc * Q, *t.shape[3:])[:, :S]
+    return (unpad(dx).to(x.dtype), unpad(ddt), da_log,
+            unpad(db).to(b.dtype), unpad(dc).to(c.dtype))
+
+
 def _bf16_terms(v: torch.Tensor, n: int) -> list:
     """`v` (fp32) as `n` bf16 terms held in fp32: term t is bf16 of what
     the terms before it left over (n = 3 holds an fp32 value exactly)."""

@@ -11,6 +11,11 @@ sharded over the ranks of `torchrun`.
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --batch 8 \\
         --device h100-sxm --memory-gib 64 --steps 100 \\
         --ckpt-dir ckpt --ckpt-every 10 --keep-last 2 [--resume]
+    python -m repro_torch.launch.train --arch mamba2-2.7b --batch 8 \\
+        --device h100-sxm --memory-gib 64 --steps 5
+
+It trains the dense and SSM decoder families; the others are refused
+when the model is built (`models.transformer.check_supported`).
 
 Runs the OSDP pipeline (describe -> search -> plan) for the data mesh,
 builds the model with the plan's segments and remat policy, and trains

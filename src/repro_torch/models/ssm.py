@@ -3,8 +3,10 @@
 Block: in_proj -> [z | x | B | C | dt] -> causal depthwise conv on
 (x,B,C) -> SSD chunk scan -> gated RMSNorm(z) -> out_proj.
 
-The chunk scan (`ssd_chunk_scan`) is the `ssd_scan` kernel on the card
-and its plain version on the CPU (`kernels.ops`); the decode step's
+The chunk scan (`ssd_chunk_scan`) is `ops.ssd`: the `ssd_scan` kernel
+on the card and its plain version on the CPU (`kernels.ops`), whose
+backward, when gradients are taken, is the `ssd_scan_bwd` kernel (the
+JAX package differentiates its jnp scan instead).  The decode step's
 single-token recurrence is plain torch, as it is plain jnp in the JAX
 package.  Every dtype round trip of the JAX module is kept: dt is a
 softplus in fp32, the conv output a SiLU in fp32 cast back to the
@@ -41,8 +43,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     b, c: (B,S,ns)  (single group, shared across heads)
     returns (y fp32 (B,S,nh,hd), final_state fp32 (B,nh,hd,ns))
     """
-    return ops.ssd_scan(x, dt, a_log, b, c, chunk=chunk,
-                        init_state=init_state)
+    return ops.ssd(x, dt, a_log, b, c, chunk=chunk, init_state=init_state)
 
 
 def ssd_decode_step(x, dt, a_log, b, c, state):

@@ -11,10 +11,10 @@ segmentation through `sharding.specs`, the FFN's uniform operator split
 (`chunked_ffn` in training, as in the JAX package) and remat through
 `Model.remat`: a `torch.utils.checkpoint` per layer, none, or a
 selective checkpoint that keeps only the tagged products the plan
-names (`save_only_these_names`).  Training runs the dense family
-(`forward`, `loss_fn` with the chunked cross-entropy); SSM training
-waits for an `ssd_scan` backward.  MoE, hybrid, VLM and audio come
-with later slices.
+names (`save_only_these_names`).  Training runs the dense and SSM
+families (`forward`, `loss_fn` with the chunked cross-entropy); the SSM
+block's chunk scan differentiates through the `ssd_scan_bwd` kernel.
+MoE, hybrid, VLM and audio come with later slices.
 
 On a data mesh (`pset.mesh`) the ZDP leaves are the rank's shards,
 gathered on use (`sharding.collectives`): each layer weight at its
@@ -286,9 +286,13 @@ class Model:
     def _block(self, x: torch.Tensor, lp: LayerParams,
                positions: torch.Tensor, window: int) -> torch.Tensor:
         cfg = self.cfg
-        h = self._norm(lp, x, "layers/attn/norm")
-        x = x + attn_mod.attn_forward(cfg, self.geom, self.pset, lp, h,
-                                      positions, window=window)
+        if cfg.has_attention:
+            h = self._norm(lp, x, "layers/attn/norm")
+            x = x + attn_mod.attn_forward(cfg, self.geom, self.pset, lp, h,
+                                          positions, window=window)
+        else:
+            h = self._norm(lp, x, "layers/ssm/norm")
+            x = x + ssm_mod.ssm_forward(cfg, self.pset, lp, h)
         return self._ffn(lp, x, self._split_g("layers.ffn_w13"))
 
     def forward(self, params: Dict[str, torch.Tensor],
@@ -300,10 +304,7 @@ class Model:
         a split of the other ops changes no product (their weights are
         not chunked there either)."""
         cfg = self.cfg
-        if cfg.family != DENSE:
-            raise NotImplementedError(
-                f"{cfg.name}: training runs the dense family; SSM training "
-                f"needs the ssd_scan backward (not ported yet)")
+        check_supported(cfg)
         with self._gathered_head(params) as params:
             x = self.embed(params, batch)
         positions = positions_for(cfg, batch, x.shape[1])

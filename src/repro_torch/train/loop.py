@@ -4,10 +4,10 @@ sharded over a data mesh.
 `make_train_step(built, ...)` returns (step_fn, init_fn), as there;
 PyTorch runs eagerly, so step_fn is a plain function: value and grads
 (microbatched: gradients accumulated in fp32 and averaged), the
-warmup-cosine scale, and the in-place AdamW update.  Every product and
-attention of the forward and backward goes through the port's kernels
-(`kernels.ops`): on a card the CUDA kernels, on the CPU their plain
-versions.
+warmup-cosine scale, and the in-place AdamW update.  Every product,
+attention and SSD chunk scan of the forward and backward goes through
+the port's kernels (`kernels.ops`): on a card the CUDA kernels, on the
+CPU their plain versions.
 
 On a data mesh (`built.mesh`, the JAX package's mesh branch) each rank
 takes its rows of the global batch and holds the plan's ZDP leaves and

@@ -8,7 +8,8 @@ they are held against `jax.grad` of the JAX model path's jnp twins,
 on the card.  Also: the differentiable forms (`ops.matmul`,
 `ops.attention`), gradients through `seg_matmul`'s sum and concat
 variants, and the step-1 loss and every gradient leaf of reduced
-qwen1.5-0.5b and phi4-mini under a DP-only and a mixed DP/ZDP plan,
+qwen1.5-0.5b and phi4-mini under a DP-only and a mixed DP/ZDP plan and
+of reduced mamba2-2.7b under global remat,
 against `jax.value_and_grad(model.loss_fn)` on the same weights and
 batch.  (The backward layouts' launch plans are checked in
 tests/test_torch_split_plan.py.)
@@ -241,7 +242,9 @@ def test_split_matmul_grads_match_jax_grad(m, k, n, dtype, transpose_w):
 # not divide (500 -> 512), so the head's padded columns are masked
 ARCHS = {"phi4": ("phi4-mini-3.8b", dict(n_kv_heads=2)),
          "qwen": ("qwen1.5-0.5b", {}),
-         "qwen_pad": ("qwen1.5-0.5b", dict(vocab_size=500))}
+         "qwen_pad": ("qwen1.5-0.5b", dict(vocab_size=500)),
+         # chunk 32: the scan's state gradient crosses two chunks
+         "mamba": ("mamba2-2.7b", dict(ssm_chunk=32))}
 MIXED_OPS = ("layers.attn_qkv", "layers.attn_out", "layers.ffn_w13",
              "layers.ffn_w2", "head.out")
 MIXED = ("DP", "ZDP", "DP", "ZDP")
@@ -345,7 +348,7 @@ def test_launch_counts_name_the_backward_kernels():
     assert ops.launch_counts() == {
         "split_matmul": 0, "split_matmul_acc": 0, "split_matmul_dgrad": 0,
         "split_matmul_wgrad": 0, "flash_attention": 0,
-        "flash_attention_bwd": 0, "ssd_scan": 0}
+        "flash_attention_bwd": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     assert ops.split_matmul_layout_counts() == {"nn": 0, "nt": 0, "tn": 0}
 
 
@@ -398,6 +401,15 @@ def test_step1_grads_match_jax(name, plan, dtype):
     """DP-only (full remat) and the mixed DP/ZDP plan (remat off; the
     sum and concat variants in every layer and the head)."""
     _check_step1_grads(name, plan, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_step1_grads_match_jax(dtype):
+    """Reduced mamba2-2.7b under global remat: the SSD block's chunk
+    scan differentiated through `ops.ssd` (`ref.ssd_scan_bwd_ref` on
+    the CPU) against jax.grad of the JAX jnp scan, every leaf (A_log,
+    dt_bias, D, the conv and both projections) included."""
+    _check_step1_grads("mamba", "dp", dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -154,7 +154,7 @@ def test_attention_ref_matches_jax_oracle():
 
 # --- dispatch ---------------------------------------------------------------
 
-KERNELS = ["split_matmul", "flash_attention", "ssd_scan"]
+KERNELS = ["split_matmul", "flash_attention", "ssd_scan", "ssd_scan_bwd"]
 # every counter `ops.launch_counts` keeps, the backward kernels' too
 NO_LAUNCHES = dict.fromkeys(KERNELS + ["split_matmul_acc",
                                        "split_matmul_dgrad",
@@ -175,6 +175,11 @@ def _dispatch_case(name, rng):
     args = (f((2, 21, 3, 8)), f((2, 21, 3)).abs(), f((3,)).abs(),
             f((2, 21, 4)), f((2, 21, 4)))
     s0 = f((2, 3, 8, 4))
+    if name == "ssd_scan_bwd":
+        kw = dict(chunk=8, d_final_state=f((2, 3, 8, 4)), init_state=s0)
+        dy = f((2, 21, 3, 8))
+        return (ops.ssd_scan_bwd(*args, dy, **kw),
+                ref.ssd_scan_bwd_ref(*args, dy, **kw))
     return (ops.ssd_scan(*args, chunk=8, init_state=s0),
             ref.ssd_scan_ref(*args, chunk=8, init_state=s0))
 
@@ -199,6 +204,10 @@ def _wrapper_call(name, dev="cpu"):
         fn = ops.flash_attention if dev == "meta" else tflash.flash_attention
         return lambda: fn(z(1, 4, 1, 1, 64), z(1, 4, 1, 64, d=dev),
                           z(1, 4, 1, 64), causal=True)
+    if name == "ssd_scan_bwd":
+        fn = ops.ssd_scan_bwd if dev == "meta" else tssd.ssd_scan_bwd
+        return lambda: fn(z(1, 4, 2, 8), z(1, 4, 2), z(2), z(1, 4, 4, d=dev),
+                          z(1, 4, 4), z(1, 4, 2, 8), chunk=4)
     fn = ops.ssd_scan if dev == "meta" else tssd.ssd_scan
     return lambda: fn(z(1, 4, 2, 8), z(1, 4, 2), z(2), z(1, 4, 4, d=dev),
                       z(1, 4, 4), chunk=4)

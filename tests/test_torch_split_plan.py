@@ -7,8 +7,10 @@ for the accumulating form, dgrad and wgrad, the general first-version
 kernel only where none can run), its tile and its K split, for each operand
 layout: "nn" (the forward, the accumulating form, the tied head's
 dgrad), "nt" (dgrad and the tied head's forward) and "tn" (wgrad).  Here
-it is checked at every product of the two served models and of
-qwen1.5-0.5b's training step, read from their configurations, and at
+it is checked at every product of the two served models and of the
+training steps of qwen1.5-0.5b and mamba2-2.7b, read from their
+configurations (mamba2's plans pinned, w_bcdt's 336-wide ragged tiles
+and the untied 50432-wide head included), and at
 the cases that force the general kernel; the persistent design's walk
 over its tiles (`tile_order`, the kernel's `TileOrder`) and its model
 of the operands' memory bytes (`operand_bytes`) are checked by
@@ -226,7 +228,7 @@ def test_split_k_order_is_fixed():
                                rtol=1e-3)
 
 
-TRAIN_ROWS = 8 * 4096          # qwen1.5-0.5b's step: batch 8 x seq 4096
+TRAIN_ROWS = 8 * 4096          # the training steps: batch 8 x seq 4096
 CE_ROWS = 8 * 512              # one chunk of the chunked cross-entropy
 
 
@@ -289,7 +291,25 @@ def _acc_dgrad_products():
                                     ("w2_chunk", c, d)]]
     out.append(("acc-w2_chunk", "acc", "nn", TRAIN_ROWS, d, c, BK))
     out.append(("dgrad-head", "dgrad", "nn", CE_ROWS, d, Vp, BWD_KSLICE))
+    out += [(f"dgrad-mamba-{n}", "dgrad", layout, M, N, K, BWD_KSLICE)
+            for n, layout, M, N, K in _mamba_products("dgrad")]
     return [pytest.param(*p[1:], id=p[0]) for p in out]
+
+
+def _mamba_products(role):
+    """(name, layout, M, N, K) of mamba2-2.7b's step (batch 8 x 4096) in
+    `role`, as out(M, N) = A(M, K) . B: the SSD block's three projections
+    (w_zx 2560 -> 10240, w_bcdt 2560 -> 336, wo 5120 -> 2560) at 32,768
+    rows and the untied head (2560 -> 50432) at a CE chunk: the forward
+    "nn", dgrad dy . w^T ("nt"), wgrad x^T . dy ("tn")."""
+    layers, (_, d, Vp) = _products("mamba2-2.7b")
+    prods = [(n, K, N, TRAIN_ROWS) for n, K, N in layers]
+    prods.append(("head", d, Vp, CE_ROWS))
+    if role == "fwd":
+        return [(n, "nn", rows, N, K) for n, K, N, rows in prods]
+    if role == "dgrad":
+        return [(n, "nt", rows, K, N) for n, K, N, rows in prods]
+    return [(n, "tn", K, N, rows) for n, K, N, rows in prods]
 
 
 @pytest.mark.parametrize("role,layout,M,N,K,bk", _acc_dgrad_products())
@@ -364,6 +384,33 @@ PINNED = {
                        13, 120, 6),
     "wgrad-head": (152064, 1024, CE_ROWS, "tn", "persistent", 256, 1, 8,
                    132, 33),
+    # mamba2-2.7b's step: w_bcdt's 336 columns ragged against bn 192 and
+    # its 336-deep dgrad, the untied 50432-wide head
+    "mamba-fwd-w_zx": (TRAIN_ROWS, 10240, 2560, "nn", "wgmma", 256, 1, 5,
+                       10240, 0),
+    "mamba-fwd-w_bcdt": (TRAIN_ROWS, 336, 2560, "nn", "wgmma", 192, 1, 5,
+                         512, 0),
+    "mamba-fwd-ssm_wo": (TRAIN_ROWS, 2560, 5120, "nn", "wgmma", 256, 1, 10,
+                         2560, 0),
+    "mamba-fwd-head": (CE_ROWS, 50432, 2560, "nn", "wgmma", 256, 1, 5, 6304,
+                       0),
+    "mamba-wgrad-w_zx": (2560, 10240, TRAIN_ROWS, "tn", "persistent", 256, 4,
+                         16, 132, 3),
+    "mamba-wgrad-w_bcdt": (2560, 336, TRAIN_ROWS, "tn", "persistent", 192, 3,
+                           22, 120, 20),
+    "mamba-wgrad-ssm_wo": (5120, 2560, TRAIN_ROWS, "tn", "persistent", 256,
+                           4, 16, 132, 13),
+    "mamba-wgrad-head": (2560, 50432, CE_ROWS, "tn", "persistent", 256, 1, 8,
+                         132, 1),
+}
+
+# mamba2-2.7b's dgrad plans: (M, N, K, bn, splits, slices a split, blocks,
+# tile-order group)
+PINNED_DGRAD = {
+    "w_zx": (TRAIN_ROWS, 2560, 10240, 256, 1, 20, 132, 13),
+    "w_bcdt": (TRAIN_ROWS, 2560, 336, 256, 1, 1, 132, 13),
+    "ssm_wo": (TRAIN_ROWS, 5120, 2560, 256, 1, 5, 132, 6),
+    "head": (CE_ROWS, 2560, 50432, 256, 2, 50, 132, 13),
 }
 
 
@@ -375,6 +422,26 @@ def test_grid_design_plans_stay_pinned(name):
     assert (plan.variant, plan.bn, plan.splits, plan.slices_per_split,
             plan.blocks, plan.group) == (design, bn, splits, sps, blocks,
                                          group)
+
+
+@pytest.mark.parametrize("name", list(PINNED_DGRAD))
+def test_mamba_dgrad_plans_stay_pinned(name):
+    M, N, K, bn, splits, sps, blocks, group = PINNED_DGRAD[name]
+    plan = plan_launch(M, N, K, BWD_KSLICE, layout="nt", role="dgrad")
+    assert (plan.variant, plan.bn, plan.splits, plan.slices_per_split,
+            plan.blocks, plan.group) == ("persistent", bn, splits, sps,
+                                         blocks, group)
+
+
+def test_mamba_products_are_the_pinned_ones():
+    """The pins above are every product of mamba2-2.7b's step."""
+    fwd = {(M, N, K) for _, _, M, N, K in _mamba_products("fwd")}
+    wgrad = {(M, N, K) for _, _, M, N, K in _mamba_products("wgrad")}
+    dgrad = {(M, N, K) for _, _, M, N, K in _mamba_products("dgrad")}
+    pinned = {n: v[:3] for n, v in PINNED.items() if n.startswith("mamba")}
+    assert fwd == {v for n, v in pinned.items() if "-fwd-" in n}
+    assert wgrad == {v for n, v in pinned.items() if "-wgrad-" in n}
+    assert dgrad == {v[:3] for v in PINNED_DGRAD.values()}
 
 
 def test_tile_order_by_hand():
@@ -398,6 +465,13 @@ ORDER_CASES = [
     (256, 256, 8192, 192, 16, 64, 2),
     (CE_ROWS, 1024, 152064, 256, 1, 128, 32),
 ]
+# mamba2-2.7b's persistent plans: its dgrad and wgrad products, w_bcdt's
+# 336 columns ragged against bn 192
+ORDER_CASES += [(M, N, K, bn, s, b, g)
+                for M, N, K, bn, s, _, b, g in PINNED_DGRAD.values()]
+ORDER_CASES += [(M, N, K, bn, s, b, g)
+                for n, (M, N, K, _, _, bn, s, _, b, g) in PINNED.items()
+                if n.startswith("mamba-wgrad")]
 
 
 @pytest.mark.parametrize("M,N,K,bn,splits,blocks,group", ORDER_CASES,
@@ -463,6 +537,8 @@ def _wgrad_products():
                                     ("w2_chunk", c, d)]]
     out += [("wgrad-head", Vp, d, CE_ROWS),
             ("wgrad-chain", CHAIN_WIDTH, CHAIN_WIDTH, CHAIN_ROWS)]
+    out += [(f"wgrad-mamba-{n}", M, N, K)
+            for n, _, M, N, K in _mamba_products("wgrad")]
     return [pytest.param(*p[1:], id=p[0]) for p in out]
 
 

@@ -4,14 +4,14 @@
   updates from the same parameters and gradients (numpy) against
   `repro.optim`; the decay mask on every leaf name of qwen1.5-0.5b.
 - `Dataset.global_batch` byte-identical to the JAX package's.
-- Three training steps of reduced qwen1.5-0.5b and reduced phi4-mini
-  through the port's `train()` against the JAX package's
+- Three training steps of reduced qwen1.5-0.5b, reduced phi4-mini and
+  reduced mamba2-2.7b (remat off and on) through the port's `train()` against the JAX package's
   `make_train_step` on the same weights (`params_from_jax` of
   `built.init(PRNGKey(0))`) and the same synthetic batches: DP-only and
   mixed DP/ZDP plans, remat on and off, microbatch 1 and 2.
 - Microbatching, the chunked cross-entropy (its chunk rule lowered on
   the port's side), what remat recomputes, a plan's remat bits against
-  the JAX package's policy, the refusals (SSM training, a corrupt
+  the JAX package's policy, the refusals (hybrid training, a corrupt
   checkpoint) and `launch/train.py`.
 
 Every tensor is small: reduced configs (2 layers, d <= 256, vocab
@@ -93,7 +93,9 @@ from repro_torch.train.loop import loss_and_grads
 from repro_torch.train.loop import train as ttrain
 
 ARCHS = {"phi4": ("phi4-mini-3.8b", dict(n_kv_heads=2)),
-         "qwen": ("qwen1.5-0.5b", {})}
+         "qwen": ("qwen1.5-0.5b", {}),
+         # chunk 32: two chunks of the scan at seq 64
+         "mamba": ("mamba2-2.7b", dict(ssm_chunk=32))}
 MIXED_OPS = ("layers.attn_qkv", "layers.attn_out", "layers.ffn_w13",
              "layers.ffn_w2", "head.out")
 MIXED = ("DP", "ZDP", "DP", "ZDP")
@@ -199,6 +201,31 @@ def test_adamw_clips_the_global_norm():
                                rtol=1e-5, atol=0)
 
 
+def test_adamw_slices_are_bit_identical(monkeypatch):
+    """`apply_update` walks a leaf in flat slices of `UPDATE_SLICE`
+    elements (so a 1.68 B-element stacked leaf needs no 6.7 GB fp32
+    temporaries): the update is elementwise, so three steps with slices
+    of 7 elements, ragged against every leaf, equal whole-leaf updates
+    bit for bit."""
+    from repro_torch.optim import adamw as tadamw
+    p, gs = _params_and_grads(3)
+    runs = []
+    for sl in (tadamw.UPDATE_SLICE, 7):
+        monkeypatch.setattr(tadamw, "UPDATE_SLICE", sl)
+        tp = {k: to_torch(v, "cpu") for k, v in p.items()}
+        st = init_state(tp)
+        for g in gs:
+            apply_update(AdamWConfig(), tp, {k: to_torch(v, "cpu")
+                                             for k, v in g.items()}, st, 1.0)
+        runs.append((tp, st))
+    (a, sa), (b, sb) = runs
+    for k in a:
+        assert torch.equal(a[k], b[k])
+        assert torch.equal(sa.master[k], sb.master[k])
+        assert torch.equal(sa.m[k], sb.m[k]) and torch.equal(sa.v[k],
+                                                             sb.v[k])
+
+
 def test_decay_mask_on_every_qwen_leaf():
     """Every leaf name of qwen1.5-0.5b at full width (read from the plan
     layouts, no tensor built), plain and under a mixed plan's segments,
@@ -282,7 +309,9 @@ TRAIN_CASES = [("qwen", "dp", True, 0, "float32"),
                ("qwen", "mixed", False, 2, "float32"),
                ("phi4", "dp", False, 2, "float32"),
                ("phi4", "mixed", True, 0, "float32"),
-               ("qwen", "dp", False, 0, "bfloat16")]
+               ("qwen", "dp", False, 0, "bfloat16"),
+               ("mamba", "dp", False, 0, "float32"),
+               ("mamba", "dp", True, 0, "float32")]
 
 
 @pytest.mark.parametrize("name,plan,remat,microbatch,dtype", TRAIN_CASES,
@@ -533,14 +562,13 @@ def test_cpu_training_step_launches_no_kernel():
     assert set(ops.launch_counts().values()) == {0}
 
 
-def test_ssm_training_is_refused():
+def test_hybrid_training_is_refused():
+    """The SSM family trains; the hybrid family (hymba) is refused with
+    its family named, when the model is built."""
     _, tr = _runs("qwen", seq=32, batch=2)
-    run = dataclasses.replace(tr, model=treduced(tget_arch("mamba2-2.7b")))
-    built = tbuild(run)
-    toks = torch.zeros((2, 33), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
-        built.model.loss_fn(built.init(0, "cpu"), {"tokens": toks[:, :-1],
-                                                   "labels": toks[:, 1:]})
+    run = dataclasses.replace(tr, model=treduced(tget_arch("hymba-1.5b")))
+    with pytest.raises(NotImplementedError, match="family 'hybrid'"):
+        tbuild(run)
 
 
 def test_train_refuses_checkpoints(tmp_path):
@@ -564,6 +592,17 @@ def test_launcher_trains_on_cpu(capsys):
     out = capsys.readouterr().out
     assert rc == 0
     assert "plan[qwen1.5-0.5b-smoke x train_4k]" in out
+    assert "device cpu" in out and "done: 3 steps" in out
+
+
+def test_launcher_trains_mamba_on_cpu(capsys):
+    """The SSM family through the same launcher (`python -m
+    repro_torch.launch.train --arch mamba2-2.7b`)."""
+    rc = tlaunch.main(["--arch", "mamba2-2.7b", "--reduced", "--cpu",
+                       "--steps", "3"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "plan[mamba2-2.7b-smoke x train_4k]" in out
     assert "device cpu" in out and "done: 3 steps" in out
 
 
