@@ -707,8 +707,9 @@ def check_ssd_bwd(torch, gen, B, S, nh=80, hd=64, ns=128, chunk=256,
 
 def check_ssd_bwd_design(torch, gen, B, S, nh, hd, ns, chunk) -> dict:
     """No register spill in the backward's kernels (their `-Xptxas -v`
-    lines), and the device time of each of its nine kernels a call at
-    (B, S) (profiler, 3 calls)."""
+    lines), the persistent chunk-term kernels' plan at (B, S) (head
+    groups, items, blocks, shared memory), and the device time of each of
+    its eight kernels a call there (profiler, 3 calls)."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -731,26 +732,28 @@ def check_ssd_bwd_design(torch, gen, B, S, nh, hd, ns, chunk) -> dict:
         torch.cuda.synchronize()
     names = {"ssd_scan_states_kernel": "F1 states", "ssd_scan_pass_kernel":
              "F2 pass", "ssd_bwd_dstate_kernel": "B1 dstate",
-             "ssd_bwd_pass_kernel": "B2 pass", "ssd_bwd_chunk_kernel": "B3",
+             "ssd_bwd_pass_kernel": "B2 pass",
+             "ssd_bwd_cols_kernel": "B3a columns",
+             "ssd_bwd_rows_kernel": "B3b rows",
              "ssd_bwd_finish_kernel": "B4 finish",
              "ssd_bwd_da_kernel": "B5 da"}
-    roles = {"0": "B3 dx", "1": "B3 db", "2": "B3 rows"}
     kernel_ms = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         k = next((v for n, v in names.items() if n in ev.key), None)
-        if k == "B3":
-            m = re.search(r"ssd_bwd_chunk_kernel<[^,>]+, (\d)>", ev.key)
-            k = roles.get(m.group(1)) if m else None
         if k:
             kernel_ms[k] = (kernel_ms.get(k, 0.0)
                             + ev.self_device_time_total / 1e3 / calls)
-    want = sorted(set(names.values()) - {"B3"} | set(roles.values()))
-    if sorted(kernel_ms) != want:
+    if sorted(kernel_ms) != sorted(names.values()):
         _fail(f"ssd_scan_bwd: profiler saw kernels {sorted(kernel_ms)}")
+    p = sk.plan_bwd(B, S, nh, hd, ns, chunk)
+    plan = dict(groups=p.groups, heads_per_group=p.heads_per_group,
+                col_items=p.col_items, row_items=p.row_items,
+                col_blocks=p.grids[3][0], row_blocks=p.grids[4][0],
+                head_stages=p.head_stages, smem=[p.smem[3], p.smem[4]])
     return dict(ptxas=lines, kernel_ms=kernel_ms,
-                kernels_per_call=len(kernel_ms))
+                kernels_per_call=len(kernel_ms), plan=plan)
 
 
 # (B, S, dtype, d_final_state, initial state, what it exercises) of
@@ -3108,8 +3111,9 @@ def main(argv=None) -> int:
     print(f"  ssd_scan_bwd: no spills ("
           + "; ".join(bwd_ssd_design["ptxas"]) + "); repeated calls "
           f"bit-identical; {len(SSD_BWD_CASES)} off-path cases ("
-          + "; ".join(c[-1] for c in SSD_BWD_CASES) + f") agree; kernels "
-          f"at {ssd_bwd[0]['shape'][:2]}: " + ", ".join(
+          + "; ".join(c[-1] for c in SSD_BWD_CASES) + f") agree; plan at "
+          f"{ssd_bwd[0]['shape'][:2]}: {bwd_ssd_design['plan']}; kernels "
+          f"there: " + ", ".join(
               f"{k} {v:.4f} ms" for k, v in
               bwd_ssd_design["kernel_ms"].items()))
     mm_ssm = []

@@ -79,6 +79,7 @@
 // fixed order.  Built with -DSSD_TRACE (tools/ssd_scan_phases.py), thread 0
 // of each block of passes 1 and 3 stamps %globaltimer at its phase
 // boundaries; without it the stamps are empty.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,11 +104,50 @@ __device__ unsigned long long g_ssd_trace[2][1 << 18];   // [pass][block][32]
     __syncthreads();        \
     SSD_STAMP(K, P);        \
   } while (0)
+// The backward's chunk-term kernels (K: 0, 1, 2) add up, a block, the
+// time of thread 0 between laps into a category S: 0 start, 1 end, 2
+// waiting for tiles, 3 products, 4 stores, 5 work items; 8192 blocks x 8
+__device__ unsigned long long g_ssd_btrace[3][8192 * 8];
+__device__ __forceinline__ unsigned long long ssd_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ unsigned long long* ssd_bslot(int k, int s) {
+  const unsigned bl = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                                blockIdx.z);
+  return bl < 8192 ? &g_ssd_btrace[k][bl * 8 + s] : nullptr;
+}
+#define SSD_BT_BEGIN(K, TID, t)                                 \
+  unsigned long long t = ssd_now();                             \
+  if (threadIdx.x == (TID) && ssd_bslot(K, 0)) *ssd_bslot(K, 0) = t
+#define SSD_BT_LAP(K, TID, S, t)                                \
+  do {                                                          \
+    if (threadIdx.x == (TID)) {                                 \
+      const unsigned long long n_ = ssd_now();                  \
+      if (ssd_bslot(K, S)) *ssd_bslot(K, S) += n_ - t;          \
+      if (ssd_bslot(K, 1)) *ssd_bslot(K, 1) = n_;               \
+      t = n_;                                                   \
+    }                                                           \
+  } while (0)
+#define SSD_BT_COUNT(K, TID)                                    \
+  do {                                                          \
+    if (threadIdx.x == (TID) && ssd_bslot(K, 5)) ++*ssd_bslot(K, 5); \
+  } while (0)
 #else
 #define SSD_STAMP(K, P) \
   do {                  \
   } while (0)
 #define SSD_STAMP_ALL(K, P) SSD_STAMP(K, P)
+#define SSD_BT_BEGIN(K, TID, t) \
+  do {                          \
+  } while (0)
+#define SSD_BT_LAP(K, TID, S, t) \
+  do {                           \
+  } while (0)
+#define SSD_BT_COUNT(K, TID) \
+  do {                       \
+  } while (0)
 #endif
 
 namespace {
@@ -968,14 +1008,17 @@ int launch(Args a, const Plan& p, void* ws, long long ws_bytes,
 // state leaving the chunk:
 //   dS_prev[c] = sum_i e_i dy_i (x) c_i + exp(last_c) D[c],  D[c] = dS_prev[c+1]
 //   dxd_j = sum_{i>=j} CB_ij L_ij dy_i + w_j D b_j
-//   dCB_ij = (dy_i . xd_j) L_ij, summed over heads:
-//   dc = dCB b + sum_h e dy P,  db = dCB^T c + sum_h w xd D
+//   dCB_ij = (dy_i . xd_j) L_ij, and G = dCB summed over the heads:
+//   dc = G b + sum_h e dy P,  db = G^T c + sum_h w xd D
 //   dcsum_i = sum_j Z_ij - sum_j Z_ji + dy_i . y_inter_i - w_i xd_i . D b_i,
 //     Z = dCB_h * CB, plus dlast = sum_j w_j xd_j . D b_j + exp(last) <D, P>
 //     at the chunk's last row; dA = reverse cumsum of dcsum,
 //   ddt = a dA + dxd . x,  dx = dt dxd,  da_log = a sum dA dt.
+// b and c are shared by the heads, so the products of G with them are
+// formed once per (batch, chunk, tile pair), not once per head.
 //
-// Passes (nine kernels a call, in stream order):
+// Passes (eight kernels a call in stream order; f32 inputs add one first
+// that cuts x, b and c into their bf16 terms in the workspace):
 //  F1, F2. the forward's passes 1 and 2 recompute csum, dt, c b^T and the
 //     carried states (as bf16 terms) into the forward's workspace layout:
 //     recomputed, not saved by the forward, so the training path keeps no
@@ -988,47 +1031,68 @@ int launch(Args a, const Plan& p, void* ws, long long ws_bytes,
 //     state a thread, as the forward's pass 2: walks the chunks backwards
 //     from d_final_state: D[c] = g (written over dS_y[c]), g = dS_y[c] +
 //     exp(last_c) g, in fp32; exp(last_c) <D[c], P[c]> as one partial sum a
-//     warp, summed by B4 in a fixed order.
-//  B3. ssd_bwd_chunk_kernel, grid (row tiles, chunks, B), launched once a
-//     role (each role at most 128 registers: two blocks an SM, no spill;
-//     one kernel of all three roles spilled at that cap), 8 warps: warp w
-//     takes rows 16 (w % 4) of the 64-row tile and half w / 4 of each
-//     product's columns; the S1 tiles go in two halves of 32 columns.  A dx block (tile J) walks the
-//     heads: the inter and state terms of its rows, then the row tiles
-//     I >= J: S1 = x_J dy_I^T (times dt_j), dxd_J += (CB L)^T dy_I with the
-//     product's A operand kept in registers; it writes dx, dxd . x (into
-//     ddt) and its rows' dcsum terms per head.  A db block (tile J) walks
-//     the heads: db_J += (x dt w)_J D + (S1 L^T) c_I.  A row block (tile I)
-//     walks the heads: dc_I += e dy_I P, then for J <= I dCB = (dy_I
-//     xd_J^T) L, dc_I += dCB b_J and the row sums of Z.  db and dc sum the
-//     heads in registers in head order: no partials, no atomics.
+//     block, summed by B4 in a fixed order.
+//  B3a. ssd_bwd_cols_kernel, persistent (one block an SM), items (batch,
+//     chunk, head group, column tile J): for each head of the group the
+//     state terms u = b_J D^T (dxd = w u, the w xd . D b terms) and
+//     db += (x dt w)_J D, then for each row tile I >= J S1^T = x_J dy_I^T,
+//     dCB^T = S1^T dt L^T, the Z sums, dxd += (CB L)^T dy_I and G^T_IJ +=
+//     dCB^T (fp32 in shared memory, each thread its own elements); it
+//     writes dx, dxd . x (into ddt) and its rows' dcsum terms per head, and
+//     at the item's end db += G^T_IJ c_I and G^T_IJ to the workspace.
+//  B3b. ssd_bwd_rows_kernel, persistent, items (batch, chunk, row tile I):
+//     for each head q = e dy_I P, dy . y_inter = c . q into the rows' dcsum
+//     terms, dc += q; then dc += G_IJ b_J for J <= I (G summed over the
+//     groups in order), and db summed over the groups when there are several.
 //  B4. ssd_bwd_finish_kernel, a thread a (b, chunk, head): dlast, the reverse
 //     cumsum over the chunk's rows, ddt += a dA, and sum dA dt.
 //  B5. ssd_bwd_da_kernel, a thread a head: da_log = a sum over (b, chunk).
 //
-// Every product is mma.sync m16n8k16 on the forward's bf16-term scheme: an
-// fp32 operand (dy, D, P, the products' factors) is cut into N bf16 terms
-// (2 with bf16 inputs, 3 with f32 inputs), an input operand (x, b, c) into
-// Prec<Tin>::NI (1: exact bf16; 3 for f32), and the term pairs whose indices
-// sum to at most N - 1 are summed in fp32.  Each tile is held in shared
-// memory as its bf16-term planes (an exact bf16 input copied by cp.async,
-// an fp32 one cut once as it is loaded) and read by ldmatrix, as the
-// forward's tiles; a product's A operand made in registers (S1 L^T, CB L)
-// is cut there.  The backward takes head dim <= 64 (one 64-wide tile) and
-// state <= 128.
+// B3a and B3b are the Hopper design: one producer warp issues every tile a
+// block reads, as TMA tiles (x, b, c and the carried state's planes in the
+// 128-byte swizzle wgmma reads; dy and c b^T fp32, swizzled) and bulk
+// copies (D, csum, dt), into a ring of four 16 KB slots (and, for x, csum
+// and dt, head stages) that complete on mbarriers; one consumer warpgroup
+// waits for each tile, cuts the fp32 operands into bf16 terms in shared
+// memory, and runs every 64-row product on wgmma: S1 and u SS (both
+// operands from shared memory), the products whose A operand is formed in
+// registers (dxd's (CB L)^T, db's x dt w and G^T, dc's e dy and G) RS.  The
+// next head's and tile's copies are in flight behind the products.  Items
+// are walked in a static order, in rounds of one item a block, every other
+// round reversed, so the column items' 4 + s, 3 + s, 2 + s, 1 + s steps
+// pair up; at batch 1 the heads are cut into groups (plan_bwd's
+// `groups`) so that the items fill the card.  Sums over heads run in head
+// order in registers or in a thread's own shared-memory elements, over
+// groups and tiles in a fixed order: no atomics.
+//
+// Precision: the forward's bf16-term scheme.  An fp32 operand (dy, D, P and
+// the products' factors) is cut into N bf16 terms (2 with bf16 inputs, 3
+// with f32 inputs), an input operand (x, b, c) into Prec<Tin>::NI (1: exact
+// bf16; 3 for f32), and the term pairs whose indices sum to at most N - 1
+// are accumulated in fp32 (one more wgmma each into the same accumulator).
+// The backward takes head dim <= 64 (one 64-wide tile), state <= 128 (one
+// 128-wide tile) and chunk <= 256 (four row tiles: G^T of an item's tile
+// pairs fits in shared memory).
 //
 // Bound on an H100 at the training shape (8, 4096, 80, 64), state 128,
 // chunk 256: the inputs (bf16 x, b, c; fp32 dt, dy) and outputs (bf16 dx,
 // db, dc; fp32 ddt) are about 1.40 GB, 0.42 ms at 3.35 TB/s; the least
 // products (the chunk-parallel form, causal halves not counted) about
-// 0.35 TFLOP, 0.35 ms at 989 TFLOP/s.  This first design is far from that
-// (PERF.md): every block walks the heads in turn, each head's tiles loaded
-// and waited for before its products, with no load in flight behind them.
+// 0.35 TFLOP, 0.35 ms at 989 TFLOP/s.  B3a's bf16-term products are about
+// 0.6 TFLOP and its distinct reads about 1.3 GB.
 
 constexpr int NTB = 128;        // threads of the dstate blocks
-constexpr int NTC = 256;        // threads of the chunk blocks
 constexpr int NTP2 = 256;       // threads of the backward state pass
 constexpr int BWD_HD = 64;      // head dims the backward takes (one tile)
+constexpr int BWD_NS = 128;     // state columns (one tile, zero-padded)
+constexpr int BWD_NTQ = 4;      // row tiles a chunk (chunk <= 256)
+constexpr int NCW = 128;        // consumer threads of B3a / B3b
+constexpr int NTK = NCW + 32;   // and the producer warp
+constexpr int RING = 4;         // ring slots
+constexpr int SLOT = 16384;     // a slot's tile: 64 x 64 fp32, 64 x 128 bf16
+constexpr int SIDE = 1024;      // a slot's side vector (B3b: e of the rows)
+constexpr int SLOT_STRIDE = SLOT + SIDE;
+constexpr int GSLOT = 4096;     // floats of one G^T tile (64 x 64)
 
 // bf16 terms of an fp32 operand (dy, D, P and the products' factors) and
 // the highest term-index sum kept; an input operand takes Prec<Tin>::NI
@@ -1050,11 +1114,18 @@ struct BArgs {
   float* da_log;     // (nh,)
   void* db;          // (B, S, ns) like b, dense
   void* dc;
-  float* ws_dcs;     // (B, nc, nh, QP): a column block's dcsum terms
-  float* ws_dcr;     // (B, nc, nh, QP): a row block's
+  float* ws_g;       // (B, nc, pairs, groups, 64, 64): G^T of a tile pair
+  float* ws_dcs;     // (B, nc, nh, QP): each row's dcsum terms
+  float* ws_zr;      // (B, nc, nh, off-diagonal pairs, 64): Z's row sums
   float* ws_dlj;     // (B, nc, nh, ntq): sum_j w_j xd_j . D b_j of tile J
   float* ws_dlr;     // (B, nc, nh, pass_parts): parts of exp(last) <D, P>
   float* ws_dda;     // (B, nc, nh): sum dA dt of the chunk
+  float* ws_dbp;     // (B, nc, ntq, groups, 64, 128): db of a group
+                     // (several groups, or f32 inputs)
+  bf16* ws_pl;       // f32 inputs: x, b, c as NI bf16 planes
+  int groups, hpg, hstages;  // head groups, heads a group, head stages
+                             // of B3a
+  int wx, wb;                      // f32 inputs' planes' row widths
 };
 
 // acc[t] (the warp's 16 rows from m0 x n8 tiles n0 / 8 + t, t < nt <= NT,
@@ -1086,85 +1157,45 @@ __device__ __forceinline__ void plane_mm(float (&acc)[NT][4], const bf16* a,
   }
 }
 
-// acc += A B over 32 columns of A from column k0, A the warp's 16 x 32 in
-// registers in the accumulator layout (4 n8 tiles: the A-fragment layout of
-// two k16 steps) cut into NA terms, B planes stored [k][n]
-template <int NA, int NB, int ORD, int NT>
-__device__ __forceinline__ void reg_mm(float (&acc)[NT][4],
-                                       const float (&A)[4][4], const bf16* b,
-                                       int pb, int ldb, int k0, int n0,
-                                       int nt, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk) {
-    uint32_t t0[NA], t1[NA], t2[NA], t3[NA], af[NA][4];
-    split2<NA>(A[2 * kk][0], A[2 * kk][1], t0);
-    split2<NA>(A[2 * kk][2], A[2 * kk][3], t1);
-    split2<NA>(A[2 * kk + 1][0], A[2 * kk + 1][1], t2);
-    split2<NA>(A[2 * kk + 1][2], A[2 * kk + 1][3], t3);
-#pragma unroll
-    for (int u = 0; u < NA; ++u) {
-      af[u][0] = t0[u];
-      af[u][1] = t1[u];
-      af[u][2] = t2[u];
-      af[u][3] = t3[u];
-    }
-#pragma unroll
-    for (int t = 0; t < NT; t += 2) {
-      if (t >= nt) continue;
-      uint32_t b0[NB][2], b1[NB][2];
-      ld_b<NB>(b0, b1, b, pb, b_kn(lane, k0 + 16 * kk, n0 + 8 * t, ldb),
-               true);
-      mma_terms<NA, NB, ORD>(acc[t], af, b0);
-      if (t + 1 < nt) mma_terms<NA, NB, ORD>(acc[t + 1], af, b1);
-    }
-  }
-}
-
 __device__ __forceinline__ void tiles_landed() {
   hopper::cp_async_commit();
   hopper::cp_async_wait<0>();
   __syncthreads();
 }
 
-// bytes of n bf16 planes of a 64-row tile of `cols` columns
+// bytes of n bf16 planes of a 64-row tile of `cols` columns (B1's layout)
 __host__ __device__ constexpr int pl_bytes(int n, int cols) {
   return 2 * n * T * (cols + LDX);
 }
-// row stride of an fp32 tile
-__host__ __device__ constexpr int ld_f(int cols) { return cols + 4; }
 
-// bytes of the backward's shared memory: the dstate block (exp(csum), e dy
-// and c as planes), and a chunk block, the largest of its roles.  A chunk
-// block's fp32 head holds csum, dt, a row vector, the halves' row sums and
-// the slabs' dlast parts; then a dx block x_J and its phases (c_J, P, dy_J;
-// b_J, D; dy_I, CB), a db block x_J, x_J dt w and its phases (D; dy_I,
-// c_I), or a row block dy_I, e dy_I and its phases (P; x_J, b_J, CB).  Input
-// tiles take NI planes, fp32 ones (dy, D, P) NF.
+// bytes of the dstate block's shared memory: exp(csum), e dy and c as
+// planes (input tiles NI planes, fp32 ones NF)
 __host__ __device__ inline int bwd_dstate_bytes(int QP, int NSP, int ni,
                                                 int nf) {
   return 4 * QP + pl_bytes(nf, BWD_HD) + pl_bytes(ni, NSP);
 }
-__host__ __device__ inline int bwd_chunk_bytes(int QP, int NSP, int ni,
-                                               int nf) {
-  const int cb = 4 * T * ld_f(T);
-  const int xi = pl_bytes(ni, BWD_HD), xf = pl_bytes(nf, BWD_HD);
-  const int si = pl_bytes(ni, NSP), sf = pl_bytes(nf, NSP);
-  const int m1 = si + sf + xf, m2 = si + sf, m3 = xf + cb;
-  const int dx = xi + (m1 > m2 ? (m1 > m3 ? m1 : m3) : (m2 > m3 ? m2 : m3));
-  const int db = xi + xf + (sf > xf + si ? sf : xf + si);
-  const int row = 2 * xf + (sf > xi + si + cb ? sf : xi + si + cb);
-  const int most = dx > db ? (dx > row ? dx : row) : (db > row ? db : row);
-  return 4 * (2 * QP + 6 * T) + most;
-}
 
-// a value of a tile held as N bf16 planes: the sum of its terms
-template <int N>
-__device__ __forceinline__ float plane_val(const bf16* pl, int plane,
-                                           int off) {
-  float v = 0.f;
-#pragma unroll
-  for (int t = N - 1; t >= 0; --t) v += __bfloat162float(pl[t * plane + off]);
-  return v;
+// B3a's shared memory, in this order from a 1024-byte aligned base: the
+// ring (RING slots of SLOT_STRIDE bytes), `hs` head stages (x's NI
+// planes of 64 x 64 bf16, csum and dt of the chunk), the bf16 planes the
+// block cuts (NF planes of D, 64 x 128, or of dy, 64 x 64), G^T of
+// BWD_NTQ tile pairs (fp32, each thread its own elements), the reduction
+// scratch (4 x 64 floats), the diagonal Z
+// row sums (64) and the dlast parts (4), the mbarriers (full, empty of
+// the ring and of each head stage); plus 1024 bytes to align the base.
+__host__ __device__ inline int bwd_head_bytes(int ni) {
+  return ni * T * T * 2 + 2 * 4 * BWD_NTQ * T;
+}
+__host__ __device__ inline int bwd_cols_bytes(int ni, int nf, int hs) {
+  return RING * SLOT_STRIDE + hs * bwd_head_bytes(ni) +
+         nf * T * BWD_NS * 2 + BWD_NTQ * GSLOT * 4 +
+         4 * (4 * T + T + 4) + 8 * (2 * RING + 2 * hs) + 1024;
+}
+// B3b's: the ring, c_I's NI planes (64 x 128 bf16), the mbarriers (full,
+// empty of the ring and of the c_I buffer); plus the alignment.
+__host__ __device__ inline int bwd_rows_bytes(int ni) {
+  return RING * SLOT_STRIDE + ni * T * BWD_NS * 2 + 8 * (2 * RING + 2) +
+         1024;
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -1183,13 +1214,18 @@ template <>
 __device__ __forceinline__ void store_val<bf16>(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
-
-// the warp's accumulator element e (0..3) of n8 tile t: row, column
-__device__ __forceinline__ int acc_row(int m0, int lane, int e) {
-  return m0 + (lane >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int acc_col(int t, int lane, int e) {
-  return 8 * t + 2 * (lane & 3) + (e & 1);
+// (v0, v1) to p[0], p[1]; one store where p is aligned to the pair
+template <typename E>
+__device__ __forceinline__ void store_pair(E* p, float v0, float v1) {
+  if ((uintptr_t)p % (2 * sizeof(E)) == 0) {
+    if constexpr (sizeof(E) == 2)
+      *reinterpret_cast<uint32_t*>(p) = hopper::pack_bf16(v0, v1);
+    else
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    store_val<E>(p, v0);
+    store_val<E>(p + 1, v1);
+  }
 }
 
 // whether one head's rows of dy take 16-byte loads
@@ -1251,19 +1287,21 @@ __global__ void __launch_bounds__(NTB) ssd_bwd_dstate_kernel(const BArgs A) {
   }
 }
 
+
 // --- B2: the state gradient, backwards over the chunks ----------------------
 
-// partial sums of exp(last) <D, P> a (b, chunk, head): one a warp of each
-// block of the pass
+// partial sums of exp(last) <D, P> a (b, chunk, head): one a block of the
+// pass
 __host__ __device__ inline int pass_parts(int hd, int ns) {
-  return (hd * ns + 4 * NTP2 - 1) / (4 * NTP2) * (NTP2 / 32);
+  return (hd * ns + 4 * NTP2 - 1) / (4 * NTP2);
 }
 
 // grid (hd ns / 1024, nh, B), a float4 of the state a thread, as the
-// forward's pass
+// forward's pass; each chunk's loads issued while the one before is added
 template <typename Tin>
 __global__ void __launch_bounds__(NTP2) ssd_bwd_pass_kernel(const BArgs A) {
   constexpr int ND = Prec<Tin>::ND;
+  __shared__ float red[NTP2 / 32];
   const Args& a = A.f;
   const Dims d(a.S, a.hd, a.ns, a.chunk);
   const int h = blockIdx.y, bi = blockIdx.z;
@@ -1274,28 +1312,42 @@ __global__ void __launch_bounds__(NTP2) ssd_bwd_pass_kernel(const BArgs A) {
   const int p = live ? e / a.ns : 0, k = live ? e - p * a.ns : 0;
   const long long head = (long long)bi * a.nh + h;
   const int parts = pass_parts(a.hd, a.ns);
-  const int part = blockIdx.x * (NTP2 / 32) + (threadIdx.x >> 5);
   float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
   if (live && A.dfin != nullptr)
     g = *reinterpret_cast<const float4*>(A.dfin + head * hdns + e);
+  auto at_of = [&](int c) { return ((long long)bi * d.nc + c) * a.nh + h; };
+  // chunk c's dS_y, carried-state terms and decay, loaded a chunk ahead
+  auto load = [&](int c, float4& sy, uint2 (&pt)[ND], float& dec) {
+    const long long at = at_of(c);
+    dec = expf(a.ws_cs[at * d.QP + d.QP - 1]);
+    if (!live) return;
+    sy = *reinterpret_cast<const float4*>(a.ws_state + at * hdns + e);
+    const bf16* sp = a.ws_sp + (at * ND * a.hd + p) * d.NSP + k;
+#pragma unroll
+    for (int t = 0; t < ND; ++t)
+      pt[t] = *reinterpret_cast<const uint2*>(sp + (long long)t * a.hd *
+                                                       d.NSP);
+  };
+  float4 sy = make_float4(0.f, 0.f, 0.f, 0.f);
+  uint2 pt[ND];
+  float dec;
+  load(d.nc - 1, sy, pt, dec);
   for (int c = d.nc - 1; c >= 0; --c) {
-    const long long at = ((long long)bi * d.nc + c) * a.nh + h;
-    const float dec = expf(a.ws_cs[at * d.QP + d.QP - 1]);
+    const long long at = at_of(c);
+    float4 nsy = sy;
+    uint2 npt[ND];
+    float ndec = dec;
+    if (c > 0) load(c - 1, nsy, npt, ndec);
     float dot = 0.f;
     if (live) {
-      float* st = a.ws_state + at * hdns + e;
-      const float4 sy = *reinterpret_cast<const float4*>(st);
-      *reinterpret_cast<float4*>(st) = g;
-      const bf16* sp = a.ws_sp + (at * ND * a.hd + p) * d.NSP + k;
+      *reinterpret_cast<float4*>(a.ws_state + at * hdns + e) = g;
       float pv[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int t = ND - 1; t >= 0; --t) {
-        const uint2 u = *reinterpret_cast<const uint2*>(
-            sp + (long long)t * a.hd * d.NSP);
         const float2 lo = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+            *reinterpret_cast<const __nv_bfloat162*>(&pt[t].x));
         const float2 hi = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+            *reinterpret_cast<const __nv_bfloat162*>(&pt[t].y));
         pv[0] += lo.x;
         pv[1] += lo.y;
         pv[2] += hi.x;
@@ -1310,412 +1362,1095 @@ __global__ void __launch_bounds__(NTP2) ssd_bwd_pass_kernel(const BArgs A) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    if ((threadIdx.x & 31) == 0) A.ws_dlr[at * parts + part] = dec * dot;
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = dot;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < NTP2 / 32; ++w) s += red[w];
+      A.ws_dlr[at * parts + blockIdx.x] = dec * s;
+    }
+    __syncthreads();
+    sy = nsy;
+#pragma unroll
+    for (int t = 0; t < ND; ++t) pt[t] = npt[t];
+    dec = ndec;
   }
 }
 
-// --- B3: the chunk terms ------------------------------------------------------
-//
-// 8 warps: warp w takes rows 16 (w % 4) of the 64-row tile and half w / 4 of
-// each product's columns (head dims, or state columns); the two halves of a
-// row slab both form its S1 tile, the A operand of the next products, and
-// sum their halves of a row's dot products through shared memory.
+// --- B3a, B3b: the chunk terms --------------------------------------------------
 
-// n8 tiles [t0, t0 + nt) of `total` that half `half` of a row slab takes
-struct Cols {
-  int n0, nt;
-  __device__ Cols(int total, int half) {
-    const int per = (total + 1) / 2, t0 = half * per;
-    n0 = 8 * t0;
-    nt = total - t0 < per ? (total - t0 > 0 ? total - t0 : 0) : per;
+// Byte offset of element (r, c) of a 64-row tile in the 128-byte swizzle
+// that TMA writes and wgmma reads: bf16 in boxes of 64 columns, fp32 in
+// boxes of 32, each box 64 rows of 128 bytes (8 KB)
+__device__ __forceinline__ uint32_t sw_bf16(int r, int c) {
+  return (c >> 6) * 8192 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
+}
+__device__ __forceinline__ uint32_t sw_f32(int r, int c) {
+  return (c >> 5) * 8192 + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
+         (c & 3) * 4;
+}
+__device__ __forceinline__ float f32_val(const char* tile, int r, int c) {
+  return *reinterpret_cast<const float*>(tile + sw_f32(r, c));
+}
+// the values at (r, c) and (r, c + 1), c even, held as N bf16 planes of
+// a swizzled tile `plane` bytes apart (one 32-bit load a plane)
+template <int N>
+__device__ __forceinline__ float2 tile_pair(const char* pl, int plane, int r,
+                                            int c) {
+  float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int t = N - 1; t >= 0; --t) {
+    const uint32_t u =
+        *reinterpret_cast<const uint32_t*>(pl + t * plane + sw_bf16(r, c));
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+    v.x += f.x;
+    v.y += f.y;
   }
+  return v;
+}
+// 8 fp32 values at (r, c0..c0 + 7), c0 % 8 == 0, cut into N bf16 planes
+template <int N>
+__device__ __forceinline__ void put8(char* pl, int plane, int r, int c0,
+                                     const float (&v)[8]) {
+  uint32_t pk[4][N];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split2<N>(v[2 * i], v[2 * i + 1], pk[i]);
+#pragma unroll
+  for (int t = 0; t < N; ++t)
+    *reinterpret_cast<uint4*>(pl + t * plane + sw_bf16(r, c0)) =
+        make_uint4(pk[0][t], pk[1][t], pk[2][t], pk[3][t]);
+}
+
+// `addr` as a value the compiler cannot see through: a descriptor made
+// from it is made where it is used, not hoisted out of the loops and kept
+// in registers
+__device__ __forceinline__ uint32_t opaque(uint32_t addr) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(addr));
+  return addr;
+}
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(v));
+  return v;
+}
+// a wgmma descriptor (128-byte swizzle) of a tile at shared address `a`
+__device__ __forceinline__ uint64_t desc_at(uint32_t a, uint32_t lbo) {
+  return hopper::wgmma_desc_sw128(opaque(a), lbo, 1024);
+}
+
+// A operands of a 64 x 64 product in registers, cut into N terms: register
+// rr of k16 step kk holds rows (16 w + lane / 4) + 8 (rr & 1), columns
+// 16 kk + 2 (lane % 4) + 8 (rr >> 1) and the next
+template <int N>
+__device__ __forceinline__ void frag_put(uint32_t (&af)[N][4][4], int kk,
+                                         int rr, float v0, float v1) {
+  uint32_t o[N];
+  split2<N>(v0, v1, o);
+#pragma unroll
+  for (int t = 0; t < N; ++t) af[t][kk][rr] = o[t];
+}
+// the same from a 64 x 64 accumulator: registers 8 kk + 2 rr and the next
+template <int N>
+__device__ __forceinline__ void frags_of(uint32_t (&af)[N][4][4],
+                                         const float (&acc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+      frag_put<N>(af, kk, rr, acc[8 * kk + 2 * rr], acc[8 * kk + 2 * rr + 1]);
+}
+// Keeps A fragments that an in-flight wgmma reads alive until its wait.
+template <int N>
+__device__ __forceinline__ void fence_af(uint32_t (&af)[N][4][4]) {
+#pragma unroll
+  for (int t = 0; t < N; ++t)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+        asm volatile("" : "+r"(af[t][kk][rr])::"memory");
+}
+
+// d (64 x 64) = or += the term pairs of A . B over K = 16 KS, both from
+// shared memory K-major (A at a_addr, NA planes `pa` bytes apart; B at
+// b_addr, NB planes `pb` apart; a k16 step 32 bytes into a 128-byte row,
+// a new 64-column box every 4 steps)
+template <int NA, int NB, int ORD, int KS>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint32_t a_addr,
+                                       int pa, uint32_t b_addr, int pb,
+                                       bool fresh) {
+  bool first = fresh;
+#pragma unroll
+  for (int i = NA - 1; i >= 0; --i)
+#pragma unroll
+    for (int j = NB - 1; j >= 0; --j) {
+      if (i + j > ORD) continue;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t off = (kk >> 2) * 8192 + (kk & 3) * 32;
+        hopper::wgmma_m64n64k16<0, 0>(
+            d, desc_at(a_addr + i * pa + off, 16),
+            desc_at(b_addr + j * pb + off, 16),
+            first ? 0 : 1);
+        first = false;
+      }
+    }
+}
+// d (64 x N) += the term pairs of A (registers, K = 64) . B (shared memory,
+// MN-major: K rows of 128 bytes, 64-column boxes 8 KB apart; plane j at
+// shared address b[j]); `fresh` overwrites d with the first
+template <int NA, int NB, int ORD, int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&af)[NA][4][4],
+                                       const uint32_t (&b)[NB], bool fresh) {
+  bool first = fresh;
+#pragma unroll
+  for (int i = NA - 1; i >= 0; --i)
+#pragma unroll
+    for (int j = NB - 1; j >= 0; --j) {
+      if (i + j > ORD) continue;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_at(b[j] + kk * 2048, 8192);
+        if constexpr (N == 128)
+          hopper::wgmma_m64n128k16_rs<1>(d, af[i][kk], db, first ? 0 : 1);
+        else
+          hopper::wgmma_m64n64k16_rs<1>(d, af[i][kk], db, first ? 0 : 1);
+        first = false;
+      }
+    }
+}
+// d (64 x N) += the term pairs of A . B as mma_rs (B's plane j at shared
+// address b[j]), A's term i cut from the fp32 values v (register rr of
+// k16 step kk from v[8 kk + 2 rr] and the next) as it is issued and
+// waited for: one term's fragments live at a time (f32 inputs, whose
+// three terms a side leave no registers for all of them at once)
+template <int NA, int NB, int ORD, int N>
+__device__ __forceinline__ void mma_rs_by_term(float (&d)[N / 2],
+                                               const float (&v)[32],
+                                               const uint32_t (&b)[NB]) {
+#pragma unroll
+  for (int i = NA - 1; i >= 0; --i) {
+    uint32_t ai[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        // a term's cut made anew (opaque to the compiler), not kept from
+        // the last term's
+        float v0 = v[8 * kk + 2 * rr], v1 = v[8 * kk + 2 * rr + 1];
+        asm volatile("" : "+f"(v0), "+f"(v1));
+        uint32_t o[NA];
+        split2<NA>(v0, v1, o);
+        ai[kk][rr] = o[i];
+      }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int j = NB - 1; j >= 0; --j) {
+      if (i + j > ORD) continue;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_at(b[j] + kk * 2048, 8192);
+        if constexpr (N == 128)
+          hopper::wgmma_m64n128k16_rs<1>(d, ai[kk], db, 1);
+        else
+          hopper::wgmma_m64n64k16_rs<1>(d, ai[kk], db, 1);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(d);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+        asm volatile("" : "+r"(ai[kk][rr])::"memory");
+  }
+}
+// the shared addresses of NB planes `pb` bytes apart from `base`, or of
+// ring slots s[0..NB)
+template <int NB>
+__device__ __forceinline__ void planes_at(uint32_t (&b)[NB], uint32_t base,
+                                          int pb) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) b[j] = base + j * pb;
+}
+template <int NB>
+__device__ __forceinline__ void slots_at(uint32_t (&b)[NB], uint32_t ring,
+                                         const int (&s)[NB]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j) b[j] = ring + s[j] * SLOT_STRIDE;
+}
+
+template <int N>
+__device__ __forceinline__ void mma_done(float (&d)[N]) {
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
+}
+
+// tile pairs I >= J of a chunk, and the pairs I > J
+__host__ __device__ inline int n_pairs(int ntq) { return ntq * (ntq + 1) / 2; }
+__host__ __device__ inline int n_off(int ntq) { return ntq * (ntq - 1) / 2; }
+__host__ __device__ inline int pair_idx(int I, int J) {
+  return I * (I + 1) / 2 + J;
+}
+__host__ __device__ inline int off_idx(int I, int J) {
+  return I * (I - 1) / 2 + J;
+}
+
+// The static walk: block x of G takes in round k the item of rank k G + x,
+// or k G + G - 1 - x in odd rounds (kernels/ssd_scan.py::walk mirrors it)
+__host__ __device__ inline long long walk_rank(int k, int x, int G) {
+  return (long long)k * G + ((k & 1) ? G - 1 - x : x);
+}
+// B3a's item of rank r: batches, chunks, head groups, then column tiles J
+// (the last chunk has ntl tiles)
+struct ColItem {
+  int b, c, g, J;
 };
-
-// a column block of tile J: with DB its db (summed over the heads), else
-// per head its dx, its part of ddt, its rows' dcsum terms and dlast part
-template <typename Tin, bool DB>
-__device__ __forceinline__ void bwd_columns(const BArgs& A, const Dims& d,
-                                            int J, int c, int bi, int n,
-                                            char* sm) {
-  constexpr int NI = Prec<Tin>::NI, NF = BPrec<Tin>::N;
-  constexpr int ORD = BPrec<Tin>::ORD;
-  const Args& a = A.f;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int slab = warp & 3, half = warp >> 2, m0 = 16 * slab, j0 = J * T;
-  const Cols pc(BWD_HD / 8, half), kc(d.NSP / 8, half);
-  const int LX = BWD_HD + LDX, PX = T * LX, LB = d.NSP + LDX, PB = T * LB;
-  const int LC = ld_f(T);
-  const long long s0 = (long long)c * d.Q;
-  float* cs = reinterpret_cast<float*>(sm);   // [QP] csum of the head
-  float* dv = cs + d.QP;                      // [QP] dt
-  float* rw = dv + d.QP;                      // [T] dt_j w_j of the rows
-  float* red = rw + T;                        // [2][2][T] halves' row sums
-  float* wsum = red + 4 * T;                  // [T] slabs' dlast parts
-  bf16* xs = reinterpret_cast<bf16*>(wsum + T);   // NI x [T][LX] x_J
-  bf16* U = xs + NI * PX;
-  // dx blocks: phase 1a c_J, P, dy_J; phase 1b b_J, D; phase 2 dy_I, CB
-  // db blocks: x_J dt w; phase 1b D; phase 2 dy_I, c_I
-  bf16* xw = U;                               // NF x [T][LX]
-  bf16* V = DB ? U + NF * PX : U;
-  bf16* cj = V;                               // NI x [T][LB]
-  bf16* Ps = cj + NI * PB;                    // NF x [64][LB]
-  bf16* dyj = Ps + NF * PB;                   // NF x [T][LX]
-  bf16* bs = V;                               // NI x [T][LB]
-  bf16* Ds = DB ? V : bs + NI * PB;           // NF x [64][LB]
-  bf16* dyi = V;                              // NF x [T][LX]
-  bf16* ci = dyi + NF * PX;                   // NI x [T][LB]
-  float* cbt = reinterpret_cast<float*>(ci);  // [T][LC] (dx blocks)
-  const int nI = (n + T - 1) / T;
-  const long long rs_y = (long long)a.nh * a.hd;
-  const bool vdy = vec_dy(A);
-  // this chunk's rows of the inputs, formed at each use (kept in no
-  // register across the head loop)
-  auto X = [&] { return static_cast<const Tin*>(a.x) + bi * a.x_sb +
-                        s0 * a.x_ss; };
-  auto Bm = [&] { return static_cast<const Tin*>(a.b) + bi * a.b_sb +
-                         s0 * a.b_ss; };
-  auto C = [&] { return static_cast<const Tin*>(a.c) + bi * a.c_sb +
-                        s0 * a.c_ss; };
-  auto DY = [&] { return A.dy + ((long long)bi * a.S + s0) * rs_y; };
-  auto CB = [&] { return a.ws_cb + ((long long)bi * d.nc + c) * d.QP * d.QP; };
-  const int r0 = acc_row(m0, lane, 0), r1 = r0 + 8;   // the lane's rows
-  const bool quad0 = (lane & 3) == 0;
-  // a row's sum over the head dims: this half's part (quad-summed) to
-  // red[slot][half], then both halves in order
-  auto row_sum = [&](int slot, float v0, float v1) {
-    v0 = quad_sum(v0);
-    v1 = quad_sum(v1);
-    if (quad0) {
-      red[(2 * slot + half) * T + r0] = v0;
-      red[(2 * slot + half) * T + r1] = v1;
-    }
-  };
-  auto both = [&](int slot, int r) {
-    return red[2 * slot * T + r] + red[(2 * slot + 1) * T + r];
-  };
-  float db[8][4] = {};
-
-  for (int h = 0; h < a.nh; ++h) {
-    const long long at = ((long long)bi * d.nc + c) * a.nh + h;
-    __syncthreads();                       // the last head is done with smem
-    copy_async<float>(cs, 0, a.ws_cs + at * d.QP, 0, 1, d.QP, 1, d.QP, tid,
-                      NTC);
-    copy_async<float>(dv, 0, a.ws_dt + at * d.QP, 0, 1, d.QP, 1, d.QP, tid,
-                      NTC);
-    fill_input<Tin>(xs, PX, LX, X() + j0 * a.x_ss + (long long)h * a.hd,
-                    a.x_ss, T, BWD_HD, n - j0, a.hd, a.vec_x, tid, NTC);
-    if constexpr (!DB) {
-      for (int t = 0; t < NF; ++t)
-        copy_async<bf16>(Ps + t * PB, LB,
-                         a.ws_sp + (at * NF + t) * a.hd * d.NSP, d.NSP,
-                         BWD_HD, d.NSP, a.hd, d.NSP, tid, NTC);
-      fill_input<Tin>(cj, PB, LB, C() + j0 * a.c_ss, a.c_ss, T, d.NSP, n - j0,
-                      a.ns, a.vec_c, tid, NTC);
-      load_planes<float, NF>(dyj, PX, LX, DY() + j0 * rs_y + (long long)h * a.hd,
-                             rs_y, T, BWD_HD, n - j0, a.hd, vdy, nullptr, tid,
-                             NTC);
-    }
-    tiles_landed();
-    const float last = cs[d.QP - 1];
-    for (int j = tid; j < T; j += NTC)
-      rw[j] = dv[j0 + j] * expf(last - cs[j0 + j]);
-    float v0 = 0.f, v1 = 0.f;
-    if constexpr (!DB) {
-      // the inter term's dcsum: e_j dy_j . (c_j P^T), this half's head dims
-      float t4[4][4] = {};
-      plane_mm<NI, NF, ORD, 4>(t4, cj, PB, LB, false, Ps, PB, LB, false, m0,
-                               d.NSP, pc.n0, pc.nt, lane);
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = t4[t][e] * plane_val<NF>(
-              dyj, PX, acc_row(m0, lane, e) * LX + pc.n0 + acc_col(t, lane, e));
-          if (e < 2) v0 += v; else v1 += v;
-        }
-      row_sum(0, v0, v1);
-    }
-    __syncthreads();                       // phase 1a and rw are done
-    if constexpr (DB)
-      load_planes<Tin, NF>(xw, PX, LX, X() + j0 * a.x_ss + (long long)h * a.hd,
-                           a.x_ss, T, BWD_HD, n - j0, a.hd, a.vec_x, rw, tid,
-                           NTC);
-    else
-      fill_input<Tin>(bs, PB, LB, Bm() + j0 * a.b_ss, a.b_ss, T, d.NSP, n - j0,
-                      a.ns, a.vec_b, tid, NTC);
-    load_planes<float, NF>(Ds, PB, LB, a.ws_state + at * a.hd * a.ns, a.ns,
-                           T, d.NSP, a.hd, a.ns, true, nullptr, tid, NTC);
-    tiles_landed();
-
-    float dxd[4][4] = {};
-    float dw0 = 0.f, dw1 = 0.f, dcs0 = 0.f, dcs1 = 0.f;
-    if constexpr (DB) {
-      // db_J += (x_J dt w) D, this half's state columns
-      plane_mm<NF, NF, ORD, 8>(db, xw, PX, LX, false, Ds, PB, LB, true, m0,
-                               BWD_HD, kc.n0, kc.nt, lane);
-    } else {
-      // the state term: u = b_J D^T; dxd = w u; dw_j w_j = rw_j x_j . u_j
-      plane_mm<NI, NF, ORD, 4>(dxd, bs, PB, LB, false, Ds, PB, LB, false, m0,
-                               d.NSP, pc.n0, pc.nt, lane);
-      const float w0 = expf(last - cs[j0 + r0]);
-      const float w1 = expf(last - cs[j0 + r1]);
-      v0 = v1 = 0.f;
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = dxd[t][e] * plane_val<NI>(
-              xs, PX, acc_row(m0, lane, e) * LX + pc.n0 + acc_col(t, lane, e));
-          if (e < 2) v0 += v; else v1 += v;
-          dxd[t][e] *= e < 2 ? w0 : w1;
-        }
-      row_sum(1, v0, v1);
-      __syncthreads();                     // both halves' sums are in
-      dw0 = both(1, r0) * rw[r0];
-      dw1 = both(1, r1) * rw[r1];
-      dcs0 = both(0, r0) * expf(cs[j0 + r0]) - dw0;
-      dcs1 = both(0, r1) * expf(cs[j0 + r1]) - dw1;
-    }
-
-    if constexpr (!DB) {
-      // this head's rows' dcsum terms so far and dlast part (the intra
-      // terms' column sums are taken off below)
-      float dls = quad0 ? dw0 + dw1 : 0.f;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        dls += __shfl_xor_sync(0xffffffffu, dls, o);
-      if (lane == 0 && half == 0) wsum[slab] = dls;
-      if (half == 0 && quad0) {
-        A.ws_dcs[at * d.QP + j0 + r0] = dcs0;
-        A.ws_dcs[at * d.QP + j0 + r1] = dcs1;
-      }
-    }
-
-    // the intra terms, row tiles I >= J, in two halves of 32 columns
-    float zc0 = 0.f, zc1 = 0.f;
-    for (int I = J; I < nI; ++I) {
-      __syncthreads();                     // phase 1 / tile I - 1 is done
-      load_planes<float, NF>(dyi, PX, LX, DY() + (long long)I * T * rs_y +
-                                              (long long)h * a.hd,
-                             rs_y, T, BWD_HD, n - I * T, a.hd, vdy, nullptr,
-                             tid, NTC);
-      if constexpr (DB)
-        fill_input<Tin>(ci, PB, LB, C() + I * T * a.c_ss, a.c_ss, T, d.NSP,
-                        n - I * T, a.ns, a.vec_c, tid, NTC);
-      else
-        copy_async<float>(cbt, LC, CB() + (long long)I * T * d.QP + j0, d.QP,
-                          T, T, T, T, tid, NTC);
-      tiles_landed();
-      const float dt0 = dv[j0 + r0], dt1 = dv[j0 + r1];
-      for (int part = 0; part < 2; ++part) {
-        const int i0 = 32 * part;
-        // S1^T = x_J dy_I^T (rows j, columns i0..i0 + 31), times dt_j below
-        float t16[4][4] = {};
-        plane_mm<NI, NF, ORD, 4>(t16, xs, PX, LX, false, dyi, PX, LX, false,
-                                 m0, BWD_HD, i0, 4, lane);
-        // L^T of the tile (rows j, columns i), 0 above the diagonal
-        auto lmask = [&](int t, int e) {
-          const int ig = I * T + i0 + acc_col(t, lane, e);
-          const int jg = j0 + acc_row(m0, lane, e);
-          return ig >= jg ? expf(cs[ig] - cs[jg]) : 0.f;
-        };
-        if constexpr (DB) {
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              t16[t][e] *= (e < 2 ? dt0 : dt1) * lmask(t, e);  // dCB^T
-          reg_mm<NF, NI, ORD, 8>(db, t16, ci, PB, LB, i0, kc.n0, kc.nt,
-                                 lane);
-        } else {
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float lm = lmask(t, e);
-              const float cbv = cbt[(i0 + acc_col(t, lane, e)) * LC +
-                                    acc_row(m0, lane, e)];
-              const float z = t16[t][e] * (e < 2 ? dt0 : dt1) * lm * cbv;
-              if (e < 2) zc0 += z; else zc1 += z;
-              t16[t][e] = cbv * lm;        // (CB L)^T
-            }
-          reg_mm<NF, NF, ORD, 4>(dxd, t16, dyi, PX, LX, i0, pc.n0, pc.nt,
-                                 lane);
-        }
-      }
-    }
-    if constexpr (DB) continue;
-
-    // this head's rows: dx = dt dxd, ddt = dxd . x, the column sums
-    Tin* DX = static_cast<Tin*>(A.dx) + ((long long)bi * a.S + s0) * rs_y +
-              (long long)h * a.hd;
-    v0 = v1 = 0.f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int jr = acc_row(m0, lane, e), p = pc.n0 + acc_col(t, lane, e);
-        const float v = dxd[t][e] * plane_val<NI>(xs, PX, jr * LX + p);
-        if (e < 2) v0 += v; else v1 += v;
-        if (t < pc.nt && j0 + jr < n && p < a.hd)
-          store_val<Tin>(DX + (j0 + jr) * rs_y + p, dxd[t][e] * dv[j0 + jr]);
-      }
-    zc0 = quad_sum(zc0);
-    zc1 = quad_sum(zc1);
-    __syncthreads();                       // slot 0 of red is free again
-    row_sum(0, v0, v1);
-    __syncthreads();
-    if (half == 0 && quad0) {
-      // the same thread wrote these terms above
-      A.ws_dcs[at * d.QP + j0 + r0] -= zc0;
-      A.ws_dcs[at * d.QP + j0 + r1] -= zc1;
-      float* dd = A.ddt + ((long long)bi * a.S + s0 + j0) * a.nh + h;
-      if (j0 + r0 < n) dd[(long long)r0 * a.nh] = both(0, r0);
-      if (j0 + r1 < n) dd[(long long)r1 * a.nh] = both(0, r1);
-    }
-    if (tid == 0)
-      A.ws_dlj[at * d.ntq + J] = (wsum[0] + wsum[1]) + (wsum[2] + wsum[3]);
+__host__ __device__ inline ColItem col_item(long long r, int nc, int ntq,
+                                            int ntl, int groups) {
+  const long long full = (long long)(nc - 1) * groups * ntq;
+  const long long per_b = full + (long long)groups * ntl;
+  ColItem it;
+  it.b = (int)(r / per_b);
+  long long k = r % per_b;
+  int per = ntq;
+  if (k < full) {
+    it.c = (int)(k / ((long long)groups * ntq));
+    k %= (long long)groups * ntq;
+  } else {
+    k -= full;
+    it.c = nc - 1;
+    per = ntl;
   }
-
-  if constexpr (!DB) return;
-  // db of the tile's rows, summed over the heads
-  Tin* DBt = static_cast<Tin*>(A.db) + ((long long)bi * a.S + s0) * a.ns;
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int jr = acc_row(m0, lane, e), k = kc.n0 + acc_col(t, lane, e);
-      if (t < kc.nt && j0 + jr < n && k < a.ns)
-        store_val<Tin>(DBt + (long long)(j0 + jr) * a.ns + k, db[t][e]);
-    }
+  it.g = (int)(k / per);
+  it.J = (int)(k % per);
+  return it;
+}
+__host__ __device__ inline long long col_items(int B, int nc, int ntq,
+                                               int ntl, int groups) {
+  return (long long)B * ((long long)(nc - 1) * groups * ntq +
+                         (long long)groups * ntl);
+}
+// B3b's item of rank r: batches, chunks, then row tiles I (c, I in .y, .z)
+__host__ __device__ inline int3 row_item(long long r, int nc, int ntq,
+                                         int ntl) {
+  const long long per_b = (long long)(nc - 1) * ntq + ntl;
+  const int b = (int)(r / per_b);
+  const int k = (int)(r % per_b);
+  return k < (nc - 1) * ntq ? make_int3(b, k / ntq, k % ntq)
+                            : make_int3(b, nc - 1, k - (nc - 1) * ntq);
 }
 
+// B3a: the column items.  Warps 0-3 consume, warp 4's lane 0 produces.
 template <typename Tin>
-__device__ __forceinline__ void bwd_rows(const BArgs& A, const Dims& d, int I,
-                                         int c, int bi, int n, char* sm) {
+__global__ void __launch_bounds__(NTK, 1)
+    ssd_bwd_cols_kernel(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tb,
+                        const __grid_constant__ CUtensorMap tc,
+                        const __grid_constant__ CUtensorMap tdy,
+                        const __grid_constant__ CUtensorMap tcb,
+                        const BArgs A) {
+  using namespace hopper;
   constexpr int NI = Prec<Tin>::NI, NF = BPrec<Tin>::N;
   constexpr int ORD = BPrec<Tin>::ORD;
-  const Args& a = A.f;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int slab = warp & 3, half = warp >> 2, m0 = 16 * slab, i0 = I * T;
-  const Cols kc(d.NSP / 8, half);
-  const int LX = BWD_HD + LDX, PX = T * LX, LB = d.NSP + LDX, PB = T * LB;
-  const int LC = ld_f(T);
-  const long long s0 = (long long)c * d.Q;
-  float* cs = reinterpret_cast<float*>(sm);   // [QP] csum of the head
-  float* dv = cs + d.QP;                      // [QP] dt
-  float* es = dv + d.QP;                      // [T] e_i of the rows
-  bf16* dyi = reinterpret_cast<bf16*>(es + 6 * T);   // NF x [T][LX] dy_I
-  bf16* dye = dyi + NF * PX;                  // NF x [T][LX] e dy_I
-  bf16* U = dye + NF * PX;
-  bf16* Ps = U;                               // phase 1: NF x [64][LB] P
-  bf16* xs = U;                               // phase 2: x_J, b_J, CB_IJ
-  bf16* bs = xs + NI * PX;
-  float* cbt = reinterpret_cast<float*>(bs + NI * PB);
-  const long long rs_y = (long long)a.nh * a.hd;
-  const bool vdy = vec_dy(A);
-  auto X = [&] { return static_cast<const Tin*>(a.x) + bi * a.x_sb +
-                        s0 * a.x_ss; };
-  auto Bm = [&] { return static_cast<const Tin*>(a.b) + bi * a.b_sb +
-                         s0 * a.b_ss; };
-  auto DY = [&] { return A.dy + ((long long)bi * a.S + s0) * rs_y; };
-  auto CB = [&] { return a.ws_cb + ((long long)bi * d.nc + c) * d.QP * d.QP; };
-  float dc[8][4] = {};
-
-  for (int h = 0; h < a.nh; ++h) {
-    const long long at = ((long long)bi * d.nc + c) * a.nh + h;
-    __syncthreads();
-    for (int i = tid; i < T; i += NTC)
-      es[i] = expf(a.ws_cs[at * d.QP + i0 + i]);
-    copy_async<float>(cs, 0, a.ws_cs + at * d.QP, 0, 1, d.QP, 1, d.QP, tid,
-                      NTC);
-    copy_async<float>(dv, 0, a.ws_dt + at * d.QP, 0, 1, d.QP, 1, d.QP, tid,
-                      NTC);
-    for (int t = 0; t < NF; ++t)
-      copy_async<bf16>(Ps + t * PB, LB,
-                       a.ws_sp + (at * NF + t) * a.hd * d.NSP, d.NSP, BWD_HD,
-                       d.NSP, a.hd, d.NSP, tid, NTC);
-    const float* dyh = DY() + i0 * rs_y + (long long)h * a.hd;
-    load_planes<float, NF>(dyi, PX, LX, dyh, rs_y, T, BWD_HD, n - i0, a.hd,
-                           vdy, nullptr, tid, NTC);
-    __syncthreads();                       // es is in
-    load_planes<float, NF>(dye, PX, LX, dyh, rs_y, T, BWD_HD, n - i0, a.hd,
-                           vdy, es, tid, NTC);
-    tiles_landed();
-    // dc_I += (e dy_I) P, this half's state columns
-    plane_mm<NF, NF, ORD, 8>(dc, dye, PX, LX, false, Ps, PB, LB, true, m0,
-                             BWD_HD, kc.n0, kc.nt, lane);
-
-    float zr0 = 0.f, zr1 = 0.f;
-    for (int J = 0; J <= I; ++J) {
-      __syncthreads();
-      fill_input<Tin>(xs, PX, LX, X() + J * T * a.x_ss + (long long)h * a.hd,
-                      a.x_ss, T, BWD_HD, n - J * T, a.hd, a.vec_x, tid, NTC);
-      fill_input<Tin>(bs, PB, LB, Bm() + J * T * a.b_ss, a.b_ss, T, d.NSP,
-                      n - J * T, a.ns, a.vec_b, tid, NTC);
-      copy_async<float>(cbt, LC, CB() + (long long)i0 * d.QP + J * T, d.QP, T,
-                        T, T, T, tid, NTC);
-      tiles_landed();
-      for (int part = 0; part < 2; ++part) {
-        const int jp = 32 * part;
-        // S1 = dy_I x_J^T (rows i, columns jp..jp + 31), times dt_j below
-        float t16[4][4] = {};
-        plane_mm<NF, NI, ORD, 4>(t16, dyi, PX, LX, false, xs, PX, LX, false,
-                                 m0, BWD_HD, jp, 4, lane);
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ir = acc_row(m0, lane, e), jc = jp + acc_col(t, lane, e);
-            const int ig = i0 + ir, jg = J * T + jc;
-            const float lm = ig >= jg ? expf(cs[ig] - cs[jg]) * dv[jg] : 0.f;
-            t16[t][e] *= lm;               // dCB
-            const float z = t16[t][e] * cbt[ir * LC + jc];
-            if (e < 2) zr0 += z; else zr1 += z;
-          }
-        reg_mm<NF, NI, ORD, 8>(dc, t16, bs, PB, LB, jp, kc.n0, kc.nt, lane);
-      }
-    }
-    zr0 = quad_sum(zr0);
-    zr1 = quad_sum(zr1);
-    if (half == 0 && (lane & 3) == 0) {
-      const long long hq = at * d.QP + i0;
-      A.ws_dcr[hq + acc_row(m0, lane, 0)] = zr0;
-      A.ws_dcr[hq + acc_row(m0, lane, 2)] = zr1;
-    }
-  }
-
-  Tin* DC = static_cast<Tin*>(A.dc) + ((long long)bi * a.S + s0) * a.ns;
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ir = acc_row(m0, lane, e), k = kc.n0 + acc_col(t, lane, e);
-      if (t < kc.nt && i0 + ir < n && k < a.ns)
-        store_val<Tin>(DC + (long long)(i0 + ir) * a.ns + k, dc[t][e]);
-    }
-}
-
-// grid (row tiles, chunks, B), launched once a role: ROLE 0 the dx column
-// blocks, 1 the db column blocks, 2 the row blocks; two blocks an SM at
-// bf16 (128 registers); f32, off the training path, needs more registers
-template <typename Tin, int ROLE>
-__global__ void __launch_bounds__(NTC, Prec<Tin>::EXACT ? 2 : 1)
-    ssd_bwd_chunk_kernel(const BArgs A) {
-  extern __shared__ float4 smem4[];
+  constexpr int XPL = T * T * 2;            // bytes of a 64 x 64 bf16 plane
+  constexpr int SPL = T * BWD_NS * 2;       // of a 64 x 128 one
   const Args& a = A.f;
   const Dims d(a.S, a.hd, a.ns, a.chunk);
-  const int tile = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
-  const long long s0 = (long long)c * d.Q;
-  const int n = (int)(a.S - s0 < d.Q ? a.S - s0 : d.Q);
-  if (c >= d.nc || bi >= a.B || tile >= d.ntq || tile * T >= n) return;
-  char* sm = reinterpret_cast<char*>(smem4);
-  if constexpr (ROLE == 0)
-    bwd_columns<Tin, false>(A, d, tile, c, bi, n, sm);
-  else if constexpr (ROLE == 1)
-    bwd_columns<Tin, true>(A, d, tile, c, bi, n, sm);
-  else
-    bwd_rows<Tin>(A, d, tile, c, bi, n, sm);
+  const int HS = A.hstages, HB = bwd_head_bytes(NI);
+  extern __shared__ uint8_t smem_raw[];
+  char* ring = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  char* heads = ring + RING * SLOT_STRIDE;
+  char* planes = heads + HS * HB;
+  float* gacc = reinterpret_cast<float*>(planes + NF * SPL);
+  float* zrw = gacc + BWD_NTQ * GSLOT;      // [4][64] warps' row sums
+  float* zdg = zrw + 4 * T;                 // [64] the diagonal pair's
+  float* wsum = zdg + T;                    // [4] warps' dlast parts
+  uint64_t* full = reinterpret_cast<uint64_t*>(wsum + 4);
+  uint64_t* empty = full + RING;
+  uint64_t* hfull = empty + RING;
+  uint64_t* hempty = hfull + HS;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCW);
+    }
+    for (int s = 0; s < HS; ++s) {
+      mbar_init(&hfull[s], 1);
+      mbar_init(&hempty[s], NCW);
+    }
+    mbar_fence_init();
+  }
+  for (int i = tid; i < BWD_NTQ * GSLOT; i += NTK) gacc[i] = 0.f;
+  __syncthreads();
+
+  const int nlast = a.S - (d.nc - 1) * d.Q;
+  const int ntl = (nlast + T - 1) / T;
+  const long long items = col_items(a.B, d.nc, d.ntq, ntl, A.groups);
+  const int G = gridDim.x;
+  const int npair = n_pairs(d.ntq), noff = n_off(d.ntq);
+
+  if (tid >= NCW) {
+    // the producer: every tile of the walk, in the consumers' order
+    if (tid != NCW) return;
+    int n = 0, hn = 0;
+    auto slot = [&](uint32_t bytes) {
+      const int s = n % RING;
+      if (n >= RING) mbar_wait(&empty[s], ((n / RING) - 1) & 1);
+      mbar_arrive_expect_tx(&full[s], bytes);
+      ++n;
+      return s;
+    };
+    for (int k = 0;; ++k) {
+      const long long r = walk_rank(k, blockIdx.x, G);
+      if (r >= items) break;
+      const ColItem it = col_item(r, d.nc, d.ntq, ntl, A.groups);
+      const int s0 = it.c * d.Q;
+      const int nrows = min(a.S - s0, d.Q), nt = (nrows + T - 1) / T;
+      const int h1 = min(a.nh, (it.g + 1) * A.hpg);
+      for (int h = it.g * A.hpg; h < h1; ++h) {
+        const long long at = ((long long)it.b * d.nc + it.c) * a.nh + h;
+        {
+          const int s = hn % HS;
+          if (hn >= HS) mbar_wait(&hempty[s], ((hn / HS) - 1) & 1);
+          ++hn;
+          char* st = heads + s * HB;
+          mbar_arrive_expect_tx(&hfull[s], NI * XPL + 8 * d.QP);
+          for (int t = 0; t < NI; ++t)
+            tma_load_4d(st + t * XPL, &tx, &hfull[s], h * a.hd,
+                        s0 + T * it.J, it.b, t);
+          float* cs = reinterpret_cast<float*>(st + NI * XPL);
+          bulk_load(cs, a.ws_cs + at * d.QP, 4 * d.QP, &hfull[s]);
+          bulk_load(cs + BWD_NTQ * T, a.ws_dt + at * d.QP, 4 * d.QP,
+                    &hfull[s]);
+        }
+        // D in two halves of 32 rows (a half past hd is empty)
+        const float* Dg = a.ws_state + at * a.hd * a.ns;
+        for (int half = 0; half < 2; ++half) {
+          const int rows = max(0, min(32, a.hd - 32 * half));
+          const int s = slot(rows * a.ns * 4);
+          if (rows)
+            bulk_load(ring + s * SLOT_STRIDE, Dg + 32 * half * a.ns,
+                      rows * a.ns * 4, &full[s]);
+        }
+        for (int t = 0; t < NI; ++t) {
+          const int s = slot(SLOT);
+          for (int bx = 0; bx < 2; ++bx)
+            tma_load_4d(ring + s * SLOT_STRIDE + bx * 8192, &tb, &full[s],
+                        64 * bx, s0 + T * it.J, it.b, t);
+        }
+        for (int I = it.J; I < nt; ++I) {
+          int s = slot(SLOT);
+          for (int bx = 0; bx < 2; ++bx)
+            tma_load_3d(ring + s * SLOT_STRIDE + bx * 8192, &tdy, &full[s],
+                        h * a.hd + 32 * bx, s0 + T * I, it.b);
+          s = slot(SLOT);
+          for (int bx = 0; bx < 2; ++bx)
+            tma_load_2d(ring + s * SLOT_STRIDE + bx * 8192, &tcb, &full[s],
+                        T * it.J + 32 * bx,
+                        (it.b * d.nc + it.c) * d.QP + T * I);
+        }
+      }
+      for (int I = it.J; I < nt; ++I)
+        for (int t = 0; t < NI; ++t) {
+          const int s = slot(SLOT);
+          for (int bx = 0; bx < 2; ++bx)
+            tma_load_4d(ring + s * SLOT_STRIDE + bx * 8192, &tc, &full[s],
+                        64 * bx, s0 + T * I, it.b, t);
+        }
+    }
+    return;
+  }
+
+  // the consumers: one warpgroup, 16 rows a warp.  With f32 inputs the
+  // lane's rows and columns are made anew at each phase from an opaque
+  // thread index, so the compiler makes the phase's shared-memory offsets
+  // there instead of keeping them in registers across the walk (three
+  // terms a side leave no room for them).
+  int warp, lane, q, r0, r1;
+  auto lanes = [&] {
+    const int t = NF == 3 ? opaque(tid) : tid;
+    warp = t >> 5;
+    lane = t & 31;
+    q = lane & 3;
+    r0 = 16 * warp + (lane >> 2);
+    r1 = r0 + 8;
+  };
+  lanes();
+  const uint32_t ring_a = smem_u32(ring), planes_a = smem_u32(planes);
+  int n = 0, hn = 0;
+  auto take = [&]() {
+    const int s = n % RING;
+    mbar_wait(&full[s], (n / RING) & 1);
+    ++n;
+    return s;
+  };
+  auto give = [&](int s) { mbar_arrive(&empty[s]); };
+  const long long rs_y = (long long)a.nh * a.hd;
+  SSD_BT_BEGIN(0, 0, tt);
+  for (int k = 0;; ++k) {
+    const long long r = walk_rank(k, blockIdx.x, G);
+    if (r >= items) break;
+    SSD_BT_COUNT(0, 0);
+    const ColItem it = col_item(r, d.nc, d.ntq, ntl, A.groups);
+    const int J = it.J, j0 = T * J, s0 = it.c * d.Q;
+    const int nrows = min(a.S - s0, d.Q), nt = (nrows + T - 1) / T;
+    const int h1 = min(a.nh, (it.g + 1) * A.hpg);
+    float db[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) db[i] = 0.f;
+    // f32 inputs sum db in the group's part in the workspace instead, a
+    // product at a time (their registers hold no 64 more across the
+    // heads), each thread its own elements: the first head writes
+    float* dbp_item = A.ws_dbp + ((((long long)it.b * d.nc + it.c) * d.ntq +
+                                   J) * A.groups + it.g) * T * BWD_NS;
+    auto db_part = [&](float* o, const float (&v)[64], bool add) {
+#pragma unroll
+      for (int t = 0; t < 16; ++t)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float2* p2 = reinterpret_cast<float2*>(
+              o + (hh ? r1 : r0) * BWD_NS + 8 * t + 2 * q);
+          float2 f = make_float2(v[4 * t + 2 * hh], v[4 * t + 2 * hh + 1]);
+          if (add) {
+            const float2 old = *p2;
+            f.x += old.x;
+            f.y += old.y;
+          }
+          *p2 = f;
+        }
+    };
+    for (int h = it.g * A.hpg; h < h1; ++h) {
+      const long long at = ((long long)it.b * d.nc + it.c) * a.nh + h;
+      lanes();
+      const int hs = hn % HS;
+      mbar_wait(&hfull[hs], (hn / HS) & 1);
+      ++hn;
+      const char* xs = heads + hs * HB;
+      const uint32_t xs_a = smem_u32(xs);
+      const float* cs = reinterpret_cast<const float*>(xs + NI * XPL);
+      const float* dtv = cs + BWD_NTQ * T;
+      const float last = cs[d.QP - 1];
+      float csj[2], dtj[2], wj[2], rwj[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = j0 + (hh ? r1 : r0);
+        csj[hh] = cs[row];
+        dtj[hh] = dtv[row];
+        wj[hh] = expf(last - csj[hh]);
+        rwj[hh] = dtj[hh] * wj[hh];
+      }
+      // D (fp32, rows of ns) cut into NF planes of 64 x 128
+      const int sd0 = take(), sd1 = take();
+      SSD_BT_LAP(0, 0, 2, tt);
+      for (int e = NF == 3 ? opaque(tid) : tid; e < T * (BWD_NS / 8);
+           e += NCW) {
+        const int p = e >> 4, k0 = (e & 15) * 8;
+        const float* src = reinterpret_cast<const float*>(
+                               ring + (p < 32 ? sd0 : sd1) * SLOT_STRIDE) +
+                           (p & 31) * a.ns + k0;
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const bool in = p < a.hd && k0 + 4 * u < a.ns;
+          const float4 f = in ? *reinterpret_cast<const float4*>(src + 4 * u)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          v[4 * u] = f.x;
+          v[4 * u + 1] = f.y;
+          v[4 * u + 2] = f.z;
+          v[4 * u + 3] = f.w;
+        }
+        put8<NF>(planes, SPL, p, k0, v);
+      }
+      give(sd0);
+      give(sd1);
+      fence_proxy_async();
+      named_bar_sync(1, NCW);
+      if constexpr (NF == 3) {
+        // f32 inputs: db's head part (x dt w)_J D first, while no other
+        // product's registers are live
+        float av[32];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            const float2 xv = tile_pair<NI>(xs, XPL, (rr & 1) ? r1 : r0,
+                                            16 * kk + 2 * q + 8 * (rr >> 1));
+            av[8 * kk + 2 * rr] = xv.x * rwj[rr & 1];
+            av[8 * kk + 2 * rr + 1] = xv.y * rwj[rr & 1];
+          }
+        uint32_t bp[NF];
+        planes_at<NF>(bp, planes_a, SPL);
+        float dbh[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) dbh[i] = 0.f;
+        mma_rs_by_term<NF, NF, ORD, 128>(dbh, av, bp);
+        db_part(dbp_item, dbh, h > it.g * A.hpg);
+      }
+      int sb[NI];
+#pragma unroll
+      for (int t = 0; t < NI; ++t) sb[t] = take();
+      SSD_BT_LAP(0, 0, 2, tt);
+      // the state term u = b_J D^T (K = 128 state columns)
+      float u[32];
+      wgmma_fence();
+      {
+        bool first = true;
+#pragma unroll
+        for (int i = NI - 1; i >= 0; --i)
+#pragma unroll
+          for (int j = NF - 1; j >= 0; --j) {
+            if (i + j > ORD) continue;
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) {
+              const uint32_t off = (kk >> 2) * 8192 + (kk & 3) * 32;
+              wgmma_m64n64k16<0, 0>(
+                  u, desc_at(ring_a + sb[i] * SLOT_STRIDE + off, 16),
+                  desc_at(planes_a + j * SPL + off, 16),
+                  first ? 0 : 1);
+              first = false;
+            }
+          }
+      }
+      mma_done(u);
+#pragma unroll
+      for (int t = 0; t < NI; ++t) give(sb[t]);
+      // dxd = w u; dw_j = dt_j w_j x_j . u_j
+      lanes();
+      float dxd[32], dw[2] = {0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int idx = 4 * t + 2 * hh;
+          const float2 xv = tile_pair<NI>(xs, XPL, hh ? r1 : r0, 8 * t + 2 * q);
+          dw[hh] += u[idx] * xv.x + u[idx + 1] * xv.y;
+          dxd[idx] = u[idx] * wj[hh];
+          dxd[idx + 1] = u[idx + 1] * wj[hh];
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) dw[hh] = quad_sum(dw[hh]) * rwj[hh];
+      // db += (x dt w)_J D: A in registers, B = D's planes MN-major (bf16
+      // inputs; f32 above)
+      if constexpr (NF == 2) {
+        uint32_t af[NF][4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            const float2 xv = tile_pair<NI>(xs, XPL, (rr & 1) ? r1 : r0,
+                                            16 * kk + 2 * q + 8 * (rr >> 1));
+            frag_put<NF>(af, kk, rr, xv.x * rwj[rr & 1], xv.y * rwj[rr & 1]);
+          }
+        uint32_t bp[NF];
+        planes_at<NF>(bp, planes_a, SPL);
+        wgmma_fence();
+        mma_rs<NF, NF, ORD, 128>(db, af, bp, false);
+        mma_done(db);
+        fence_af(af);
+      }
+      SSD_BT_LAP(0, 0, 3, tt);
+
+      // the row tiles I >= J
+      float zc[2] = {0.f, 0.f};
+      for (int I = J; I < nt; ++I) {
+        const int sdy = take(), scb = take();
+        SSD_BT_LAP(0, 0, 2, tt);
+        lanes();
+        const char* dyt = ring + sdy * SLOT_STRIDE;
+        const char* cbt = ring + scb * SLOT_STRIDE;
+        const int nrow = nrows - T * I;
+        // dy_I (fp32, swizzled) cut into NF planes of 64 x 64
+        for (int e = NF == 3 ? opaque(tid) : tid; e < T * 8; e += NCW) {
+          const int i = e >> 3, p0 = (e & 7) * 8;
+          float v[8];
+#pragma unroll
+          for (int u4 = 0; u4 < 2; ++u4) {
+            const float4 f = *reinterpret_cast<const float4*>(
+                dyt + sw_f32(i, p0 + 4 * u4));
+            const float fv[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+            for (int m = 0; m < 4; ++m)
+              v[4 * u4 + m] =
+                  (i < nrow && p0 + 4 * u4 + m < a.hd) ? fv[m] : 0.f;
+          }
+          put8<NF>(planes, XPL, i, p0, v);
+        }
+        fence_proxy_async();
+        named_bar_sync(1, NCW);
+        // S1^T = x_J dy_I^T (rows j, columns i)
+        float s[32];
+        wgmma_fence();
+        mma_ss<NI, NF, ORD, 4>(s, xs_a, XPL, planes_a, XPL, true);
+        mma_done(s);
+        // dCB^T = S1^T dt_j L^T; Z; G^T += dCB^T; s becomes (CB L)^T; Z's
+        // row sums (over j) of the pair are the tile's column sums: this
+        // thread's two rows, then the warp's 16 (lanes of one q), into
+        // zrw for the warps' sum below
+        float* gs = gacc + (I - J) * GSLOT;
+        uint32_t af[NF][4][4];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          float4 gv = *reinterpret_cast<float4*>(gs + (t * NCW + tid) * 4);
+          float* gp = &gv.x;
+          float cz[2] = {0.f, 0.f};
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int idx = 4 * t + 2 * hh + e;
+              const int row = hh ? r1 : r0, col = 8 * t + 2 * q + e;
+              const int ig = T * I + col, jg = j0 + row;
+              const float L =
+                  ig >= jg && ig < nrows ? expf(cs[ig] - csj[hh]) : 0.f;
+              const float dcbt = s[idx] * dtj[hh] * L;
+              const float cbv = f32_val(cbt, col, row);
+              const float z = dcbt * cbv;
+              zc[hh] += z;
+              cz[e] += z;
+              gp[2 * hh + e] += dcbt;
+              s[idx] = cbv * L;
+            }
+          // registers 4 t .. 4 t + 3 are A's k16 step t / 2, registers
+          // 2 (t % 2) + hh (f32 inputs cut them term by term below)
+          if constexpr (NF == 2)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              frag_put<NF>(af, t >> 1, 2 * (t & 1) + hh, s[4 * t + 2 * hh],
+                           s[4 * t + 2 * hh + 1]);
+          *reinterpret_cast<float4*>(gs + (t * NCW + tid) * 4) = gv;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            cz[e] += __shfl_xor_sync(0xffffffffu, cz[e], 4);
+            cz[e] += __shfl_xor_sync(0xffffffffu, cz[e], 8);
+            cz[e] += __shfl_xor_sync(0xffffffffu, cz[e], 16);
+          }
+          if (lane < 4) {
+            zrw[warp * T + 8 * t + 2 * q] = cz[0];
+            zrw[warp * T + 8 * t + 2 * q + 1] = cz[1];
+          }
+        }
+        give(sdy);
+        give(scb);
+        named_bar_sync(1, NCW);
+        if (tid < T) {
+          const float v = (zrw[tid] + zrw[T + tid]) +
+                          (zrw[2 * T + tid] + zrw[3 * T + tid]);
+          if (I == J)
+            zdg[tid] = v;
+          else
+            A.ws_zr[(at * noff + off_idx(I, J)) * T + tid] = v;
+        }
+        // dxd += (CB L)^T dy_I (dy's planes MN-major)
+        if constexpr (NF == 2) {
+          uint32_t bp[NF];
+          planes_at<NF>(bp, planes_a, XPL);
+          wgmma_fence();
+          mma_rs<NF, NF, ORD, 64>(dxd, af, bp, false);
+          mma_done(dxd);
+          fence_af(af);
+        } else {
+          uint32_t bp[NF];
+          planes_at<NF>(bp, planes_a, XPL);
+          mma_rs_by_term<NF, NF, ORD, 64>(dxd, s, bp);
+        }
+        SSD_BT_LAP(0, 0, 3, tt);
+      }
+
+      // this head's rows: dx = dt dxd, ddt = dxd . x, dcsum terms, dlast
+      named_bar_sync(1, NCW);                // zdg is in
+      lanes();
+      float dd[2] = {0.f, 0.f};
+      Tin* DX = static_cast<Tin*>(A.dx) + ((long long)it.b * a.S + s0) * rs_y +
+                (long long)h * a.hd;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = hh ? r1 : r0, col = 8 * t + 2 * q;
+          const int idx = 4 * t + 2 * hh;
+          const float2 xv = tile_pair<NI>(xs, XPL, row, col);
+          dd[hh] += dxd[idx] * xv.x + dxd[idx + 1] * xv.y;
+          if (j0 + row < nrows) {
+            Tin* o = DX + (long long)(j0 + row) * rs_y + col;
+            if (col + 1 < a.hd)
+              store_pair<Tin>(o, dxd[idx] * dtj[hh], dxd[idx + 1] * dtj[hh]);
+            else if (col < a.hd)
+              store_val<Tin>(o, dxd[idx] * dtj[hh]);
+          }
+        }
+      mbar_arrive(&hempty[hs]);              // x, csum and dt are read
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        dd[hh] = quad_sum(dd[hh]);
+        zc[hh] = quad_sum(zc[hh]);
+      }
+      if (q == 0)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = hh ? r1 : r0, jg = j0 + row;
+          if (jg < nrows) {
+            A.ddt[((long long)it.b * a.S + s0 + jg) * a.nh + h] = dd[hh];
+            A.ws_dcs[at * d.QP + jg] = zdg[row] - zc[hh] - dw[hh];
+          }
+        }
+      float dl = q == 0 ? dw[0] + dw[1] : 0.f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        dl += __shfl_xor_sync(0xffffffffu, dl, o);
+      if (lane == 0) wsum[warp] = dl;
+      named_bar_sync(1, NCW);
+      if (tid == 0)
+        A.ws_dlj[at * d.ntq + J] = (wsum[0] + wsum[1]) + (wsum[2] + wsum[3]);
+      SSD_BT_LAP(0, 0, 4, tt);
+    }
+
+    // the item's end: db += G^T_IJ c_I; G^T_IJ to the workspace
+    for (int I = J; I < nt; ++I) {
+      lanes();
+      float gv[32];
+      float* gs = gacc + (I - J) * GSLOT;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        float4* p4 = reinterpret_cast<float4*>(gs + (t * NCW + tid) * 4);
+        const float4 f = *p4;
+        gv[4 * t] = f.x;
+        gv[4 * t + 1] = f.y;
+        gv[4 * t + 2] = f.z;
+        gv[4 * t + 3] = f.w;
+        *p4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float* gw = A.ws_g + ((((long long)it.b * d.nc + it.c) * npair +
+                             pair_idx(I, J)) * A.groups + it.g) * GSLOT;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(gw + (hh ? r1 : r0) * T + 8 * t +
+                                     2 * q) =
+              make_float2(gv[4 * t + 2 * hh], gv[4 * t + 2 * hh + 1]);
+      int sc[NI];
+#pragma unroll
+      for (int t = 0; t < NI; ++t) sc[t] = take();
+      SSD_BT_LAP(0, 0, 2, tt);
+      uint32_t bp[NI];
+      slots_at<NI>(bp, ring_a, sc);
+      if constexpr (NF == 2) {
+        uint32_t af[NF][4][4];
+        frags_of<NF>(af, gv);
+        wgmma_fence();
+        mma_rs<NF, NI, ORD, 128>(db, af, bp, false);
+        mma_done(db);
+        fence_af(af);
+      } else {
+        float dbh[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) dbh[i] = 0.f;
+        mma_rs_by_term<NF, NI, ORD, 128>(dbh, gv, bp);
+        db_part(dbp_item, dbh, true);
+      }
+#pragma unroll
+      for (int t = 0; t < NI; ++t) give(sc[t]);
+      SSD_BT_LAP(0, 0, 3, tt);
+    }
+    lanes();
+    // db of the tile's rows: the output (one group) or the group's part
+    // (f32 inputs: added there above)
+    if constexpr (NF == 2)
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = hh ? r1 : r0, col = 8 * t + 2 * q;
+        if (j0 + row >= nrows || col >= a.ns) continue;  // ns % 4 == 0
+        const float v0 = db[4 * t + 2 * hh], v1 = db[4 * t + 2 * hh + 1];
+        if (A.groups == 1) {
+          store_pair<Tin>(static_cast<Tin*>(A.db) +
+                              ((long long)it.b * a.S + s0 + j0 + row) * a.ns +
+                              col,
+                          v0, v1);
+        } else {
+          float* o = A.ws_dbp +
+                     (((((long long)it.b * d.nc + it.c) * d.ntq + J) *
+                           A.groups + it.g) * T + row) * BWD_NS + col;
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        }
+      }
+    SSD_BT_LAP(0, 0, 4, tt);
+  }
+}
+
+// B3b: the row items.  Warps 0-3 consume, warp 4's lane 0 produces.
+template <typename Tin>
+__global__ void __launch_bounds__(NTK, 1)
+    ssd_bwd_rows_kernel(const __grid_constant__ CUtensorMap tdy,
+                        const __grid_constant__ CUtensorMap tp,
+                        const __grid_constant__ CUtensorMap tc,
+                        const __grid_constant__ CUtensorMap tb,
+                        const BArgs A) {
+  using namespace hopper;
+  constexpr int NI = Prec<Tin>::NI, NF = BPrec<Tin>::N;
+  constexpr int ND = Prec<Tin>::ND, ORD = BPrec<Tin>::ORD;
+  constexpr int SPL = T * BWD_NS * 2;
+  static_assert(ND == NF, "the carried state's terms are an fp32 operand's");
+  const Args& a = A.f;
+  const Dims d(a.S, a.hd, a.ns, a.chunk);
+  extern __shared__ uint8_t smem_raw[];
+  char* ring = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  char* cpl = ring + RING * SLOT_STRIDE;            // c_I: NI planes
+  uint64_t* full = reinterpret_cast<uint64_t*>(cpl + NI * SPL);
+  uint64_t* empty = full + RING;
+  uint64_t* ifull = empty + RING;
+  uint64_t* iempty = ifull + 1;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NCW);
+    }
+    mbar_init(ifull, 1);
+    mbar_init(iempty, NCW);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int nlast = a.S - (d.nc - 1) * d.Q;
+  const int ntl = (nlast + T - 1) / T;
+  const long long items = (long long)a.B * ((d.nc - 1) * d.ntq + ntl);
+  const int G = gridDim.x;
+  const int npair = n_pairs(d.ntq);
+
+  if (tid >= NCW) {
+    if (tid != NCW) return;
+    int n = 0;
+    auto slot = [&](uint32_t bytes) {
+      const int s = n % RING;
+      if (n >= RING) mbar_wait(&empty[s], ((n / RING) - 1) & 1);
+      mbar_arrive_expect_tx(&full[s], bytes);
+      ++n;
+      return s;
+    };
+    for (int k = 0;; ++k) {
+      const long long r = walk_rank(k, blockIdx.x, G);
+      if (r >= items) break;
+      const int3 it = row_item(r, d.nc, d.ntq, ntl);
+      const int s0 = it.y * d.Q, I = it.z;
+      if (k > 0) mbar_wait(iempty, (k - 1) & 1);
+      mbar_arrive_expect_tx(ifull, NI * SPL);
+      for (int t = 0; t < NI; ++t)
+        for (int bx = 0; bx < 2; ++bx)
+          tma_load_4d(cpl + t * SPL + bx * 8192, &tc, ifull, 64 * bx,
+                      s0 + T * I, it.x, t);
+      for (int h = 0; h < a.nh; ++h) {
+        const long long at = ((long long)it.x * d.nc + it.y) * a.nh + h;
+        int s = slot(SLOT + 4 * T);
+        for (int bx = 0; bx < 2; ++bx)
+          tma_load_3d(ring + s * SLOT_STRIDE + bx * 8192, &tdy, &full[s],
+                      h * a.hd + 32 * bx, s0 + T * I, it.x);
+        bulk_load(ring + s * SLOT_STRIDE + SLOT, a.ws_cs + at * d.QP + T * I,
+                  4 * T, &full[s]);
+        for (int t = 0; t < ND; ++t) {
+          s = slot(SLOT);
+          for (int bx = 0; bx < 2; ++bx)
+            tma_load_3d(ring + s * SLOT_STRIDE + bx * 8192, &tp, &full[s],
+                        64 * bx, 0, (int)(at * ND + t));
+        }
+      }
+      for (int J = 0; J <= I; ++J)
+        for (int t = 0; t < NI; ++t) {
+          const int s = slot(SLOT);
+          for (int bx = 0; bx < 2; ++bx)
+            tma_load_4d(ring + s * SLOT_STRIDE + bx * 8192, &tb, &full[s],
+                        64 * bx, s0 + T * J, it.x, t);
+        }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, q = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2), r1 = r0 + 8;
+  const uint32_t ring_a = smem_u32(ring);
+  int n = 0;
+  auto take = [&]() {
+    const int s = n % RING;
+    mbar_wait(&full[s], (n / RING) & 1);
+    ++n;
+    return s;
+  };
+  auto give = [&](int s) { mbar_arrive(&empty[s]); };
+  SSD_BT_BEGIN(1, 0, tt);
+  for (int k = 0;; ++k) {
+    const long long r = walk_rank(k, blockIdx.x, G);
+    if (r >= items) break;
+    SSD_BT_COUNT(1, 0);
+    const int3 it = row_item(r, d.nc, d.ntq, ntl);
+    const int bi = it.x, c = it.y, I = it.z, s0 = c * d.Q, i0 = T * I;
+    const int nrows = min(a.S - s0, d.Q), nrow = nrows - i0;
+    mbar_wait(ifull, k & 1);
+    float dc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dc[i] = 0.f;
+    for (int h = 0; h < a.nh; ++h) {
+      const long long at = ((long long)bi * d.nc + c) * a.nh + h;
+      // q = e dy_I P: A = e dy_I in registers, B = P's planes MN-major
+      const int sdy = take();
+      SSD_BT_LAP(1, 0, 2, tt);
+      const char* dyt = ring + sdy * SLOT_STRIDE;
+      const float* ev = reinterpret_cast<const float*>(dyt + SLOT);
+      const float e2[2] = {expf(ev[r0]), expf(ev[r1])};
+      uint32_t af[NF][4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int row = (rr & 1) ? r1 : r0;
+          const int col = 16 * kk + 2 * q + 8 * (rr >> 1);
+          const bool in = row < nrow;
+          const float v0 = in && col < a.hd ? f32_val(dyt, row, col) : 0.f;
+          const float v1 =
+              in && col + 1 < a.hd ? f32_val(dyt, row, col + 1) : 0.f;
+          frag_put<NF>(af, kk, rr, v0 * e2[rr & 1], v1 * e2[rr & 1]);
+        }
+      give(sdy);
+      int sp[ND];
+#pragma unroll
+      for (int t = 0; t < ND; ++t) sp[t] = take();
+      SSD_BT_LAP(1, 0, 2, tt);
+      float qa[64];
+      uint32_t bp[ND];
+      slots_at<ND>(bp, ring_a, sp);
+      wgmma_fence();
+      mma_rs<NF, ND, ORD, 128>(qa, af, bp, true);
+      mma_done(qa);
+      fence_af(af);
+#pragma unroll
+      for (int t = 0; t < ND; ++t) give(sp[t]);
+      // dy_i . y_inter_i = c_i . q_i into the row's dcsum terms; dc += q
+      float iv[2] = {0.f, 0.f};
+#pragma unroll
+      for (int t = 0; t < 16; ++t)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int idx = 4 * t + 2 * hh;
+          const float2 cv = tile_pair<NI>(cpl, SPL, hh ? r1 : r0, 8 * t + 2 * q);
+          iv[hh] += qa[idx] * cv.x + qa[idx + 1] * cv.y;
+          dc[idx] += qa[idx];
+          dc[idx + 1] += qa[idx + 1];
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        iv[hh] = quad_sum(iv[hh]);
+        const int row = hh ? r1 : r0;
+        if (q == 0 && row < nrow) A.ws_dcs[at * d.QP + i0 + row] += iv[hh];
+      }
+      SSD_BT_LAP(1, 0, 3, tt);
+    }
+    // dc += G_IJ b_J, G = the groups' G^T parts summed in order
+    for (int J = 0; J <= I; ++J) {
+      const float* gsrc = A.ws_g + (((long long)bi * d.nc + c) * npair +
+                                    pair_idx(I, J)) * A.groups * GSLOT;
+      uint32_t af[NF][4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int i = (rr & 1) ? r1 : r0;
+          const int j = 16 * kk + 2 * q + 8 * (rr >> 1);
+          float v0 = 0.f, v1 = 0.f;
+          for (int g = 0; g < A.groups; ++g) {
+            v0 += gsrc[g * GSLOT + j * T + i];
+            v1 += gsrc[g * GSLOT + (j + 1) * T + i];
+          }
+          frag_put<NF>(af, kk, rr, v0, v1);
+        }
+      int sb[NI];
+#pragma unroll
+      for (int t = 0; t < NI; ++t) sb[t] = take();
+      SSD_BT_LAP(1, 0, 2, tt);
+      uint32_t bp[NI];
+      slots_at<NI>(bp, ring_a, sb);
+      wgmma_fence();
+      mma_rs<NF, NI, ORD, 128>(dc, af, bp, false);
+      mma_done(dc);
+      fence_af(af);
+#pragma unroll
+      for (int t = 0; t < NI; ++t) give(sb[t]);
+      SSD_BT_LAP(1, 0, 3, tt);
+    }
+    // db of the tile's rows summed over B3a's head groups, in order (f32
+    // inputs: from its one group's part, too)
+    if (A.groups > 1 || !Prec<Tin>::EXACT) {
+      Tin* DB = static_cast<Tin*>(A.db) + ((long long)bi * a.S + s0 + i0) *
+                                              a.ns;
+      const float* src = A.ws_dbp + (((long long)bi * d.nc + c) * d.ntq + I) *
+                                        A.groups * T * BWD_NS;
+      for (int e = tid; e < nrow * a.ns && e < T * a.ns; e += NCW) {
+        const int row = e / a.ns, col = e - row * a.ns;
+        float v = 0.f;
+        for (int g = 0; g < A.groups; ++g)
+          v += src[((long long)g * T + row) * BWD_NS + col];
+        store_val<Tin>(DB + e, v);
+      }
+    }
+    Tin* DC = static_cast<Tin*>(A.dc) + ((long long)bi * a.S + s0 + i0) * a.ns;
+#pragma unroll
+    for (int t = 0; t < 16; ++t)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = hh ? r1 : r0, col = 8 * t + 2 * q;
+        if (row >= nrow || col >= a.ns) continue;        // ns % 4 == 0
+        store_pair<Tin>(DC + (long long)row * a.ns + col, dc[4 * t + 2 * hh],
+                        dc[4 * t + 2 * hh + 1]);
+      }
+    mbar_arrive(iempty);                     // c_I is read
+    SSD_BT_LAP(1, 0, 4, tt);
+  }
+}
+
+// f32 inputs: x, b and c cut into NI = 3 bf16 planes in the workspace,
+// x as (3, B, S, wx), b and c as (3, B, S, wb), rows zero-padded
+__global__ void ssd_bwd_split_kernel(const BArgs A) {
+  const Args& a = A.f;
+  const long long rows = (long long)a.B * a.S;
+  const long long nx = rows * A.wx, nb = rows * A.wb;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < nx + 2 * nb; e += (long long)gridDim.x * blockDim.x) {
+    const float* src;
+    long long idx, plane, sb, ss;
+    int width, ncol;
+    bf16* dst;
+    if (e < nx) {
+      idx = e, plane = nx, width = A.wx, ncol = a.nh * a.hd;
+      src = static_cast<const float*>(a.x), sb = a.x_sb, ss = a.x_ss;
+      dst = A.ws_pl;
+    } else if (e < nx + nb) {
+      idx = e - nx, plane = nb, width = A.wb, ncol = a.ns;
+      src = static_cast<const float*>(a.b), sb = a.b_sb, ss = a.b_ss;
+      dst = A.ws_pl + 3 * nx;
+    } else {
+      idx = e - nx - nb, plane = nb, width = A.wb, ncol = a.ns;
+      src = static_cast<const float*>(a.c), sb = a.c_sb, ss = a.c_ss;
+      dst = A.ws_pl + 3 * nx + 3 * nb;
+    }
+    const long long r = idx / width;
+    const int col = (int)(idx - r * width);
+    const int bi = (int)(r / a.S), s = (int)(r - (long long)bi * a.S);
+    float v = col < ncol ? src[bi * sb + s * ss + col] : 0.f;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const bf16 hv = __float2bfloat16_rn(v);
+      dst[t * plane + idx] = hv;
+      v -= __bfloat162float(hv);
+    }
+  }
 }
 
 // --- B4, B5: the reverse cumsum, ddt and da_log ------------------------------
@@ -1736,11 +2471,14 @@ __global__ void ssd_bwd_finish_kernel(const BArgs A) {
   for (int J = 0; J * T < n; ++J) run += dlj[J];
   const float Aa = -expf(a.a_log[h]);
   const float* dcs = A.ws_dcs + idx * d.QP;
-  const float* dcr = A.ws_dcr + idx * d.QP;
+  const float* zr = A.ws_zr + idx * n_off(d.ntq) * T;
   const float* dtv = a.ws_dt + idx * d.QP;
   float sum = 0.f;
   for (int t = n - 1; t >= 0; --t) {
-    run += dcs[t] + dcr[t];
+    const int I = t / T;
+    float z = 0.f;          // Z's row sums over the column tiles left of I
+    for (int J = 0; J < I; ++J) z += zr[off_idx(I, J) * T + t % T];
+    run += dcs[t] + z;
     float* o = A.ddt + ((long long)bi * a.S + s0 + t) * a.nh + h;
     *o = fmaf(Aa, run, *o);
     sum = fmaf(run, dtv[t], sum);
@@ -1760,44 +2498,76 @@ __global__ void ssd_bwd_da_kernel(const BArgs A) {
 }
 
 // The backward's plan as kernels/ssd_scan.py::plan_bwd gives it
-// (BwdPlan.c_plan): the forward's plan for F1 and F2, then 31 int64.
+// (BwdPlan.c_plan): the forward's plan for F1 and F2, then 48 int64.
 struct BwdPlan {
   Plan fwd;
-  long long grid[5][3];   // B1 dstate, B2 pass, B3 chunk (a role), B4, B5
-  long long threads[5];
-  long long smem[5];
-  long long ws[6];        // floats: fin, dcs, dcr, dlj, dlr, dda
+  long long grid[7][3];   // split (f32), B1, B2, B3a, B3b, B4, B5
+  long long threads[7];
+  long long smem[7];
+  long long ws[8];        // floats: fin / G^T, dcs, zr, dlj, dlr, dda,
+                          // db parts, input planes
+  long long groups;       // B3a's head groups
+  long long hpg;          // heads a group
+  long long hstages;      // B3a's head stages
+  long long wx;           // row widths of the f32 inputs' planes
+  long long wb;
 };
-static_assert(sizeof(BwdPlan) == (22 + 31) * sizeof(long long),
+static_assert(sizeof(BwdPlan) == (22 + 48) * sizeof(long long),
               "bwd plan layout");
 
 template <typename Tin>
 bool valid_bwd(const BArgs& A, const BwdPlan& p, long long ws_bytes) {
   const Args& a = A.f;
   const Dims d(a.S, a.hd, a.ns, a.chunk);
-  if (a.hd > BWD_HD || p.threads[0] != NTB || p.threads[1] != NTP2 ||
-      p.threads[2] != NTC || p.threads[3] < 1 || p.threads[3] > 1024 ||
-      p.threads[4] < 1 || p.threads[4] > 1024 || p.smem[1] != 0 ||
-      p.smem[3] != 0 || p.smem[4] != 0)
-    return false;
   constexpr int ni = Prec<Tin>::NI, nf = BPrec<Tin>::N;
-  if (p.smem[0] < bwd_dstate_bytes(d.QP, d.NSP, ni, nf) ||
-      p.smem[2] < bwd_chunk_bytes(d.QP, d.NSP, ni, nf))
+  const bool f32 = !Prec<Tin>::EXACT;
+  if (a.hd > BWD_HD || a.ns > BWD_NS || d.ntq > BWD_NTQ ||
+      p.threads[1] != NTB || p.threads[2] != NTP2 || p.threads[3] != NTK ||
+      p.threads[4] != NTK)
     return false;
-  for (int k = 0; k < 5; ++k) {
+  for (int k = 0; k < 7; k += k == 0 ? 5 : 1)   // split, B4, B5
+    if (p.threads[k] < 1 || p.threads[k] > 1024) return false;
+  if (p.groups < 1 || p.hpg < 1 || p.groups * p.hpg < a.nh ||
+      (p.groups - 1) * p.hpg >= a.nh || p.hstages < 1 || p.hstages > 2)
+    return false;
+  if (p.smem[1] < bwd_dstate_bytes(d.QP, d.NSP, ni, nf) ||
+      p.smem[3] < bwd_cols_bytes(ni, nf, (int)p.hstages) ||
+      p.smem[4] < bwd_rows_bytes(ni) || p.smem[0] != 0 || p.smem[2] != 0 ||
+      p.smem[5] != 0 || p.smem[6] != 0)
+    return false;
+  for (int k = 0; k < 7; ++k) {
     if (p.smem[k] < 0 || p.smem[k] > MAX_SMEM || p.grid[k][0] < 1 ||
         p.grid[k][0] > 0x7fffffff)
       return false;
     for (int i = 1; i < 3; ++i)
       if (p.grid[k][i] < 1 || p.grid[k][i] > 65535) return false;
   }
-  long long need = 0;
-  for (long long f : p.fwd.ws) need += 4 * f;
-  for (long long f : p.ws) {
-    if (f < 0 || f % 4 != 0) return false;
-    need += 4 * f;
+  const int ntl = (a.S - (d.nc - 1) * d.Q + T - 1) / T;
+  if (p.grid[3][0] > col_items(a.B, d.nc, d.ntq, ntl, (int)p.groups) ||
+      p.grid[4][0] > (long long)a.B * ((d.nc - 1) * d.ntq + ntl) ||
+      p.grid[3][1] != 1 || p.grid[3][2] != 1 || p.grid[4][1] != 1 ||
+      p.grid[4][2] != 1)
+    return false;
+  const long long heads = (long long)a.B * d.nc * a.nh;
+  const long long gfl = (long long)a.B * d.nc * n_pairs(d.ntq) * p.groups *
+                        GSLOT;
+  const long long fin = (long long)a.B * a.nh * a.hd * a.ns;
+  if (p.wx < a.nh * a.hd || p.wb < a.ns || p.wx % 8 || p.wb % 8) return false;
+  const long long rows = (long long)a.B * a.S;
+  const long long need[8] = {
+      fin > gfl ? fin : gfl, heads * d.QP, heads * n_off(d.ntq) * T,
+      heads * d.ntq, heads * pass_parts(a.hd, a.ns), heads,
+      p.groups > 1 || f32
+          ? (long long)a.B * d.nc * d.ntq * p.groups * T * BWD_NS
+          : 0,
+      f32 ? 3 * rows * (p.wx + 2 * p.wb) / 2 : 0};
+  long long total = 0;
+  for (long long f : p.fwd.ws) total += 4 * f;
+  for (int k = 0; k < 8; ++k) {
+    if (p.ws[k] < need[k] || p.ws[k] % 4 != 0) return false;
+    total += 4 * p.ws[k];
   }
-  return need <= ws_bytes;
+  return total <= ws_bytes;
 }
 
 template <typename K>
@@ -1817,9 +2587,65 @@ inline dim3 bgrid(const BwdPlan& p, int k) {
               (unsigned)p.grid[k][2]);
 }
 
+// cuTensorMapEncodeTiled from the CUDA driver, found through the runtime (no
+// link against libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// A tensor of `rank` dims (dims[0] contiguous; strides in bytes of dims
+// 1..), read in `box` tiles with the 128-byte swizzle; out-of-range
+// elements read as zero
+bool swz_map(CUtensorMap* map, bool f32, const void* ptr, int rank,
+             const cuuint64_t* dims, const cuuint64_t* strides,
+             const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_fn();
+  if (!fn) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            rank, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An input (x: width nh hd; b, c: width ns) as NI bf16 planes of rows:
+// the bf16 input itself (its batch and sequence strides, which must be
+// 16-byte multiples) or the f32 input's planes in the workspace
+bool input_map(CUtensorMap* map, const void* ptr, int ni, long long width,
+               long long S, long long B, long long ss, long long sb,
+               long long plane) {
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)S, (cuuint64_t)B,
+                              (cuuint64_t)ni};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sb * 2,
+                                 (cuuint64_t)plane * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return swz_map(map, false, ptr, 4, dims, strides, box);
+}
+
 template <typename Tin>
 int launch_bwd(BArgs A, const BwdPlan& p, void* ws, long long ws_bytes,
                cudaStream_t st) {
+  constexpr int NI = Prec<Tin>::NI, ND = Prec<Tin>::ND;
   Args& a = A.f;
   if (!valid(a, p.fwd, ws, ws_bytes) || !valid_bwd<Tin>(A, p, ws_bytes))
     return (int)cudaErrorInvalidValue;
@@ -1830,12 +2656,20 @@ int launch_bwd(BArgs A, const BwdPlan& p, void* ws, long long ws_bytes,
   a.ws_dt = a.ws_cs + p.fwd.ws[2];
   a.ws_sp = reinterpret_cast<bf16*>(a.ws_dt + p.fwd.ws[3]);
   float* more = a.ws_dt + p.fwd.ws[3] + p.fwd.ws[4];
-  a.fin = more;
-  A.ws_dcs = a.fin + p.ws[0];
-  A.ws_dcr = A.ws_dcs + p.ws[1];
-  A.ws_dlj = A.ws_dcr + p.ws[2];
+  a.fin = more;                 // F2's final state, dead before B3a
+  A.ws_g = more;                // writes G^T over it
+  A.ws_dcs = more + p.ws[0];
+  A.ws_zr = A.ws_dcs + p.ws[1];
+  A.ws_dlj = A.ws_zr + p.ws[2];
   A.ws_dlr = A.ws_dlj + p.ws[3];
   A.ws_dda = A.ws_dlr + p.ws[4];
+  A.ws_dbp = A.ws_dda + p.ws[5];
+  A.ws_pl = reinterpret_cast<bf16*>(A.ws_dbp + p.ws[6]);
+  A.groups = (int)p.groups;
+  A.hpg = (int)p.hpg;
+  A.hstages = (int)p.hstages;
+  A.wx = (int)p.wx;
+  A.wb = (int)p.wb;
   const int E = (int)sizeof(Tin);
   auto al = [](const void* ptr) { return (uintptr_t)ptr % 16 == 0; };
   a.vec_x = al(a.x) && (a.x_sb * E) % 16 == 0 && (a.x_ss * E) % 16 == 0 &&
@@ -1844,6 +2678,49 @@ int launch_bwd(BArgs A, const BwdPlan& p, void* ws, long long ws_bytes,
   a.vec_c = al(a.c) && (a.c_sb * E) % 16 == 0 && (a.c_ss * E) % 16 == 0;
   a.vec_init = a.init != nullptr && al(a.init);
   const Dims d(a.S, a.hd, a.ns, a.chunk);
+
+  // the tensor maps of B3a and B3b
+  CUtensorMap tx, tb, tc, tdy, tcb, tp;
+  const long long rows = (long long)a.B * a.S;
+  bool ok;
+  if (Prec<Tin>::EXACT) {
+    ok = al(a.x) && al(a.b) && al(a.c) &&
+         input_map(&tx, a.x, 1, (long long)a.nh * a.hd, a.S, a.B, a.x_ss,
+                   a.x_sb, a.x_sb * a.B) &&
+         input_map(&tb, a.b, 1, a.ns, a.S, a.B, a.b_ss, a.b_sb,
+                   a.b_sb * a.B) &&
+         input_map(&tc, a.c, 1, a.ns, a.S, a.B, a.c_ss, a.c_sb, a.c_sb * a.B);
+  } else {
+    const bf16* xp = A.ws_pl;
+    const bf16* bp = xp + 3 * rows * A.wx;
+    const bf16* cp = bp + 3 * rows * A.wb;
+    ok = input_map(&tx, xp, NI, (long long)a.nh * a.hd, a.S, a.B, A.wx,
+                   (long long)a.S * A.wx, rows * A.wx) &&
+         input_map(&tb, bp, NI, a.ns, a.S, a.B, A.wb, (long long)a.S * A.wb,
+                   rows * A.wb) &&
+         input_map(&tc, cp, NI, a.ns, a.S, a.B, A.wb, (long long)a.S * A.wb,
+                   rows * A.wb);
+  }
+  {
+    const cuuint64_t ydims[3] = {(cuuint64_t)a.nh * a.hd, (cuuint64_t)a.S,
+                                 (cuuint64_t)a.B};
+    const cuuint64_t ystr[2] = {(cuuint64_t)a.nh * a.hd * 4,
+                                (cuuint64_t)a.S * a.nh * a.hd * 4};
+    const cuuint32_t fbox[3] = {32, 64, 1};
+    const cuuint64_t cdims[2] = {(cuuint64_t)d.QP,
+                                 (cuuint64_t)a.B * d.nc * d.QP};
+    const cuuint64_t cstr[1] = {(cuuint64_t)d.QP * 4};
+    const cuuint64_t pdims[3] = {(cuuint64_t)a.ns, (cuuint64_t)a.hd,
+                                 (cuuint64_t)a.B * d.nc * a.nh * ND};
+    const cuuint64_t pstr[2] = {(cuuint64_t)d.NSP * 2,
+                                (cuuint64_t)a.hd * d.NSP * 2};
+    const cuuint32_t pbox[3] = {64, 64, 1};
+    ok = ok && al(A.dy) && swz_map(&tdy, true, A.dy, 3, ydims, ystr, fbox) &&
+         swz_map(&tcb, true, a.ws_cb, 2, cdims, cstr, fbox) &&
+         swz_map(&tp, false, a.ws_sp, 3, pdims, pstr, pbox);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+
   const bool two = (d.HDP / 16) * ((d.NSP + 63) / 64) > 8;
   int rc = two ? launch_states<Tin, 2>(a, p.fwd, st)
                : launch_states<Tin, 1>(a, p.fwd, st);
@@ -1851,24 +2728,36 @@ int launch_bwd(BArgs A, const BwdPlan& p, void* ws, long long ws_bytes,
   ssd_scan_pass_kernel<Tin><<<grid_of(p.fwd, 1), NT2, 0, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  rc = launch_smem(ssd_bwd_dstate_kernel<Tin>, bgrid(p, 0), NTB, p.smem[0],
+  if (!Prec<Tin>::EXACT) {
+    rc = launch_smem(ssd_bwd_split_kernel, bgrid(p, 0), (int)p.threads[0], 0,
+                     st, A);
+    if (rc != 0) return rc;
+  }
+  rc = launch_smem(ssd_bwd_dstate_kernel<Tin>, bgrid(p, 1), NTB, p.smem[1],
                    st, A);
   if (rc != 0) return rc;
-  rc = launch_smem(ssd_bwd_pass_kernel<Tin>, bgrid(p, 1), NTP2, 0, st, A);
+  rc = launch_smem(ssd_bwd_pass_kernel<Tin>, bgrid(p, 2), NTP2, 0, st, A);
   if (rc != 0) return rc;
-  rc = launch_smem(ssd_bwd_chunk_kernel<Tin, 0>, bgrid(p, 2), NTC, p.smem[2],
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_cols_kernel<Tin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.smem[3]);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_cols_kernel<Tin><<<bgrid(p, 3), NTK, (int)p.smem[3], st>>>(
+      tx, tb, tc, tdy, tcb, A);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  err = cudaFuncSetAttribute(ssd_bwd_rows_kernel<Tin>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)p.smem[4]);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_rows_kernel<Tin><<<bgrid(p, 4), NTK, (int)p.smem[4], st>>>(
+      tdy, tp, tc, tb, A);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  rc = launch_smem(ssd_bwd_finish_kernel, bgrid(p, 5), (int)p.threads[5], 0,
                    st, A);
   if (rc != 0) return rc;
-  rc = launch_smem(ssd_bwd_chunk_kernel<Tin, 1>, bgrid(p, 2), NTC, p.smem[2],
-                   st, A);
-  if (rc != 0) return rc;
-  rc = launch_smem(ssd_bwd_chunk_kernel<Tin, 2>, bgrid(p, 2), NTC, p.smem[2],
-                   st, A);
-  if (rc != 0) return rc;
-  rc = launch_smem(ssd_bwd_finish_kernel, bgrid(p, 3), (int)p.threads[3], 0,
-                   st, A);
-  if (rc != 0) return rc;
-  return launch_smem(ssd_bwd_da_kernel, bgrid(p, 4), (int)p.threads[4], 0, st,
+  return launch_smem(ssd_bwd_da_kernel, bgrid(p, 6), (int)p.threads[6], 0, st,
                      A);
 }
 
@@ -1962,6 +2851,15 @@ extern "C" int ssd_trace_read(void* dst, int k) {
 }
 extern "C" int ssd_trace_clear() {
   static unsigned long long zero[2 << 18];
-  return (int)cudaMemcpyToSymbol(g_ssd_trace, zero, sizeof(zero));
+  cudaError_t e = cudaMemcpyToSymbol(g_ssd_trace, zero, sizeof(zero));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyToSymbol(g_ssd_btrace, zero,
+                                 sizeof(g_ssd_btrace));
+}
+// the backward's chunk-term kernel k's block sums, 8192 blocks x 8
+extern "C" int ssd_btrace_read(void* dst, int k) {
+  return (int)cudaMemcpyFromSymbol(dst, g_ssd_btrace,
+                                   sizeof(unsigned long long) * 8192 * 8,
+                                   k * sizeof(unsigned long long) * 8192 * 8);
 }
 #endif

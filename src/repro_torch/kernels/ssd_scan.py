@@ -17,14 +17,16 @@ is the plan's one owner: the wrapper passes it to the C entry
 launches it as given.
 
 `ssd_scan_bwd` is the gradient (the Pallas kernel has none; the JAX
-package differentiates its jnp scan): nine kernels a call, counted once
-in `bwd_launches`.  It recomputes the forward's passes 1 and 2 (csum, dt,
+package differentiates its jnp scan): eight kernels a call (nine with
+f32 inputs), counted once in `bwd_launches`.  It recomputes the forward's passes 1 and 2 (csum, dt,
 c.b^T, the carried states) into the forward's workspace layout rather
 than keeping them from the forward: at (8, 4096, 80, 64), state 128,
 that workspace is about 0.72 GB a layer, which a training step would
 otherwise hold for every layer between its forward and its backward.
-`plan_bwd` owns the backward's grids, shared memory and workspace
-(`BwdPlan.c_plan`, `struct BwdPlan` in the source).
+`plan_bwd` owns the backward's grids, shared memory, workspace and the
+persistent chunk-term kernels' walk (`BwdPlan.c_plan`, `struct BwdPlan`
+in the source; `walk`, `col_item` and `row_item` mirror the kernels'
+item order).
 """
 from __future__ import annotations
 
@@ -44,12 +46,21 @@ TILE = 64              # rows of a tile: chunk rows and state rows
 HEAD_GROUP = 2         # heads a chunk-scan block, picked by a chip sweep
 MAX_SMEM = 232448      # bytes of shared memory a block (H100)
 THREADS = 256          # of the states/CB blocks and of the state pass
-BWD_MAX_HEAD_DIM = 64  # the backward's limits: one 64-wide head tile
+BWD_MAX_HEAD_DIM = 64  # the backward's limits: one 64-wide head tile,
+BWD_STATE = 128        # one 128-wide state tile,
+BWD_MAX_CHUNK = 256    # four row tiles a chunk
+BWD_NTQ = BWD_MAX_CHUNK // TILE
 BWD_THREADS = 128      # of its dstate blocks (4 warps)
-BWD_CHUNK_THREADS = 256   # of its chunk-terms blocks (8 warps)
+BWD_CHUNK_THREADS = 160   # of the chunk-term kernels: a consumer
+                          # warpgroup and a producer warp
 BWD_PASS_THREADS = 256
 BWD_FINISH_THREADS = 256
 BWD_DA_THREADS = 128
+BWD_SPLIT_THREADS = 256   # f32 inputs cut into bf16 planes
+SMS = 132              # H100 SMs: the chunk-term kernels' blocks
+RING = 4               # their ring of tiles: slots of a 16 KB tile and a
+SLOT_STRIDE = 16384 + 1024  # 1 KB side vector
+GSLOT = 4096           # floats of a 64 x 64 G^T tile
 launches = 0           # calls since the last reset
 bwd_launches = 0       # backward calls since the last reset
 
@@ -265,55 +276,166 @@ def bwd_dstate_bytes(QP: int, NSP: int, ni: int, nf: int) -> int:
     return 4 * QP + _planes(nf, BWD_MAX_HEAD_DIM) + _planes(ni, NSP)
 
 
-def bwd_chunk_bytes(QP: int, NSP: int, ni: int, nf: int) -> int:
-    """Shared memory of a chunk-terms block, the largest of its roles
-    (`bwd_chunk_bytes` in the source): an fp32 head of csum, dt and six
-    rows of row vectors; a dx block's x_J and the largest of its phases
-    (c_J, the carried state P and dy_J; b_J and D; dy_I and a c.b^T
-    tile), a db block's x_J, x_J dt w and the larger of its phases (D;
-    dy_I and c_I), or a row block's dy_I, e dy_I and the larger of its
-    phases (P; x_J, b_J and a c.b^T tile).  Inputs take `ni` bf16
-    planes, fp32 operands (dy, D, P) `nf`."""
-    HD = BWD_MAX_HEAD_DIM
-    cb = 4 * TILE * (TILE + 4)
-    xi, xf = _planes(ni, HD), _planes(nf, HD)
-    si, sf = _planes(ni, NSP), _planes(nf, NSP)
-    dx = xi + max(si + sf + xf, si + sf, xf + cb)
-    db = xi + xf + max(sf, xf + si)
-    row = 2 * xf + max(sf, xi + si + cb)
-    return 4 * (2 * QP + 6 * TILE) + max(dx, db, row)
+def bwd_head_bytes(ni: int) -> int:
+    """A head stage of the column kernel: x's `ni` bf16 planes (64 x 64)
+    and the chunk's csum and dt (fp32, 256 rows each)."""
+    return ni * TILE * TILE * 2 + 2 * 4 * BWD_NTQ * TILE
+
+
+def bwd_cols_bytes(ni: int, nf: int, hs: int) -> int:
+    """Shared memory of the column kernel (`bwd_cols_bytes` in the
+    source): the ring, `hs` head stages, the `nf` bf16 planes it cuts
+    (D, 64 x 128, or dy, 64 x 64), G^T of four tile pairs (fp32 64 x 64),
+    the reduction scratch (4 x 64 + 64 + 4 floats), the mbarriers and
+    1024 bytes to align the base to the swizzle's period."""
+    return (RING * SLOT_STRIDE + hs * bwd_head_bytes(ni)
+            + nf * TILE * BWD_STATE * 2 + BWD_NTQ * GSLOT * 4
+            + 4 * (4 * TILE + TILE + 4) + 8 * (2 * RING + 2 * hs) + 1024)
+
+
+def bwd_rows_bytes(ni: int) -> int:
+    """Shared memory of the row kernel (`bwd_rows_bytes`): the ring, c_I's
+    `ni` bf16 planes (64 x 128), the mbarriers and the alignment."""
+    return (RING * SLOT_STRIDE + ni * TILE * BWD_STATE * 2
+            + 8 * (2 * RING + 2) + 1024)
+
+
+def walk(k: int, x: int, G: int) -> int:
+    """The item rank block x of G takes in round k (`walk_rank`): rounds
+    of one item a block, every other round reversed."""
+    return k * G + (G - 1 - x if k & 1 else x)
+
+
+def col_item(r: int, nc: int, ntq: int, ntl: int, groups: int) -> tuple:
+    """The column kernel's item of rank r (`col_item`): (batch, chunk,
+    head group, column tile J), J fastest; the last chunk has ntl
+    tiles."""
+    full = (nc - 1) * groups * ntq
+    b, k = divmod(r, full + groups * ntl)
+    if k < full:
+        c, k = divmod(k, groups * ntq)
+        return (b, c) + divmod(k, ntq)
+    return (b, nc - 1) + divmod(k - full, ntl)
+
+
+def row_item(r: int, nc: int, ntq: int, ntl: int) -> tuple:
+    """The row kernel's item of rank r (`row_item`): (batch, chunk, row
+    tile I)."""
+    b, k = divmod(r, (nc - 1) * ntq + ntl)
+    return (b,) + (divmod(k, ntq) if k < (nc - 1) * ntq
+                   else (nc - 1, k - (nc - 1) * ntq))
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one backward call is launched: the forward's passes 1 and 2
+    as `fwd` plans them, then in stream order the f32 inputs' split
+    (launched for f32 only), dstate, the state pass, the column and row
+    kernels of the chunk terms (persistent: one block an SM walking its
+    items), finish and da_log."""
+    fwd: SsdPlan
+    grids: Tuple[Tuple[int, int, int], ...]
+    threads: Tuple[int, ...]
+    smem: Tuple[int, ...]        # dynamic shared memory a block, bytes
+    # fp32 values after the forward's workspace: F2's final state, then
+    # G^T of each tile pair and head group over it; each row's dcsum
+    # terms; Z's row sums of the pairs I > J; the column tiles' and the
+    # state pass's blocks' dlast parts; each chunk's sum dA dt; db of
+    # each head group (several groups, or f32 inputs); f32 inputs' bf16
+    # planes
+    workspace: Tuple[int, ...]
+    groups: int                  # the column kernel's head groups
+    heads_per_group: int
+    head_stages: int             # its head stages (2, or 1 for f32)
+    plane_widths: Tuple[int, int]   # f32 inputs' planes: x's, b's rows
+    col_items: int
+    row_items: int
+
+    @property
+    def workspace_bytes(self) -> int:
+        return self.fwd.workspace_bytes + 4 * sum(self.workspace)
+
+    @functools.cached_property
+    def c_plan(self) -> ctypes.Array:
+        """The plan as the C entry reads it (`struct BwdPlan` in
+        csrc/ssd_scan.cu): the forward's 22 int64, then 48: the grids,
+        threads, shared memory, workspace floats, head groups, heads a
+        group, head stages and the planes' row widths."""
+        vals = (list(self.fwd.c_plan) + [v for g in self.grids for v in g]
+                + list(self.threads) + list(self.smem)
+                + list(self.workspace)
+                + [self.groups, self.heads_per_group, self.head_stages,
+                   *self.plane_widths])
+        return (ctypes.c_longlong * len(vals))(*vals)
 
 
 @functools.lru_cache(maxsize=1024)
 def plan_bwd(B: int, S: int, nh: int, hd: int, ns: int, chunk: int,
              dtype: str = "bfloat16") -> BwdPlan:
     """The launch of one `ssd_scan_bwd` call (shapes as `plan_launch`);
-    the backward takes head dim <= 64."""
+    the backward takes head dim <= 64 and chunk <= 256.  The column
+    kernel cuts the heads into groups when the (batch, chunk, column
+    tile) items alone would not give every SM two."""
     fwd = plan_launch(B, S, nh, hd, ns, chunk, dtype)
-    if hd > BWD_MAX_HEAD_DIM:
+    if hd > BWD_MAX_HEAD_DIM or min(chunk, S) > BWD_MAX_CHUNK:
         raise ValueError(f"ssd_scan_bwd takes head dim <= "
-                         f"{BWD_MAX_HEAD_DIM}, got {hd}")
+                         f"{BWD_MAX_HEAD_DIM} and chunk <= {BWD_MAX_CHUNK}, "
+                         f"got hd={hd}, chunk={chunk}")
+    f32 = dtype == "float32"
     QP, NSP, nc = fwd.chunk_pad, fwd.ns_pad, fwd.n_chunks
+    Q = fwd.chunk_rows
     ntq = QP // TILE
+    ntl = -(-(S - (nc - 1) * Q) // TILE)
     # bf16 terms of an input tile and of an fp32 one
-    ni, nf = (1, 2) if dtype == "bfloat16" else (3, 3)
-    smem = (bwd_dstate_bytes(QP, NSP, ni, nf), 0,
-            bwd_chunk_bytes(QP, NSP, ni, nf), 0, 0)
+    ni, nf = (3, 3) if f32 else (1, 2)
+    units = B * ((nc - 1) * ntq + ntl)     # (batch, chunk, column tile)
+    hpg = -(-nh // min(nh, max(1, -(-2 * SMS // units))))
+    groups = -(-nh // hpg)
+    col_items, row_items = units * groups, units
+    hs = 2 if bwd_cols_bytes(ni, nf, 2) <= MAX_SMEM else 1
+    smem = (0, bwd_dstate_bytes(QP, NSP, ni, nf), 0,
+            bwd_cols_bytes(ni, nf, hs), bwd_rows_bytes(ni), 0, 0)
     if max(smem) > MAX_SMEM:
         raise ValueError(f"ssd_scan_bwd: {max(smem)} bytes of shared "
                          f"memory a block at chunk {chunk}, state {ns}")
     heads = B * nc * nh
+    wx, wb = _up(nh * hd, 8), _up(ns, 8)
+    split = 3 * B * S * (wx + 2 * wb)      # bf16 values, f32 inputs only
     pass_blocks = -(-(hd * ns) // (4 * BWD_PASS_THREADS))
-    grids = ((nh, nc, B), (pass_blocks, nh, B), (ntq, nc, B),
+    grids = ((min(-(-split // 3 // BWD_SPLIT_THREADS), 4 * SMS)
+              if f32 else 1, 1, 1),
+             (nh, nc, B), (pass_blocks, nh, B),
+             (min(col_items, SMS), 1, 1), (min(row_items, SMS), 1, 1),
              (-(-heads // BWD_FINISH_THREADS), 1, 1),
              (-(-nh // BWD_DA_THREADS), 1, 1))
-    threads = (BWD_THREADS, BWD_PASS_THREADS, BWD_CHUNK_THREADS,
-               BWD_FINISH_THREADS, BWD_DA_THREADS)
-    # the state pass's partial sums: one a warp of each of its blocks
-    parts = pass_blocks * BWD_PASS_THREADS // 32
-    workspace = (B * nh * hd * ns, heads * QP, heads * QP,
-                 _up(heads * ntq, 4), _up(heads * parts, 4), _up(heads, 4))
-    return BwdPlan(fwd, grids, threads, smem, workspace)
+    threads = (BWD_SPLIT_THREADS, BWD_THREADS, BWD_PASS_THREADS,
+               BWD_CHUNK_THREADS, BWD_CHUNK_THREADS, BWD_FINISH_THREADS,
+               BWD_DA_THREADS)
+    npair, noff = ntq * (ntq + 1) // 2, ntq * (ntq - 1) // 2
+    workspace = (max(B * nh * hd * ns, B * nc * npair * groups * GSLOT),
+                 heads * QP, heads * noff * TILE, _up(heads * ntq, 4),
+                 _up(heads * pass_blocks, 4), _up(heads, 4),
+                 B * nc * ntq * groups * TILE * BWD_STATE
+                 if groups > 1 or f32 else 0,
+                 _up(split // 2, 4) if f32 else 0)
+    return BwdPlan(fwd, grids, threads, smem, workspace, groups, hpg, hs,
+                   (wx, wb), col_items, row_items)
+
+
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """`t` (B, S, ...) with its batch and sequence strides and its start
+    on 16 bytes, as the chunk-term kernels' tensor maps need; a copy into
+    rows padded to 16 bytes where they are not."""
+    e = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st * e % 16 == 0
+                                      for st in t.stride()[:2]):
+        return t
+    B, S = t.shape[:2]
+    width = t[0, 0].numel()
+    buf = torch.zeros(B, S, _up(width, 16 // e), dtype=t.dtype,
+                      device=t.device)
+    buf[..., :width] = t.reshape(B, S, width)
+    return buf[..., :width].view(t.shape)
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -359,6 +481,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     dc = torch.empty((B, S, ns), dtype=c.dtype, device=dev)
     ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
                      device=dev)
+    if x.dtype == torch.bfloat16:
+        x, b, c = _tma_rows(x), _tma_rows(b), _tma_rows(c)
     x_sb, x_ss = _rows(x, "x")
     b_sb, b_ss = _rows(b, "b")
     c_sb, c_ss = _rows(c, "c")

@@ -2,7 +2,10 @@
 """Where a block of the `ssd_scan` kernels spends its time, on one GPU,
 and the chunk scan's head group swept.
 
-    python3 tools/ssd_scan_phases.py
+    python3 tools/ssd_scan_phases.py [--backward] [--source FILE]
+
+`--backward` traces only the backward's chunk-term kernels; `--source`
+builds another copy of `ssd_scan.cu` (with `hopper.cuh` beside it).
 
 There is no `ncu` where the card runs, so this builds
 `src/repro_torch/csrc/ssd_scan.cu` with -DSSD_TRACE into a library of its
@@ -23,7 +26,16 @@ Stamps of pass 3: 0 start, 1 prologue copies in, 2 carried term done,
 then for each column tile J: 3 + 2J its copies waited for, 4 + 2J the
 next tile's copies issued (G and the products of tile J follow), 30
 before the store.  The traced library lives in build/ssd_scan_phases/.
+
+The backward's chunk-term kernels (`ssd_scan_bwd` at mamba2-2.7b's
+training shape (8, 4096, 80) and at (1, 333, 80), bf16) instead add up,
+for each block, thread 0's time between laps into categories: waiting
+for tiles, products (with their element-wise work), stores; and count
+its work items (heads or items).  For each kernel this prints the span,
+the spread of block start and end times, and the median and largest of
+each category's block sum, then the call's time by CUDA-graph replay.
 """
+import argparse
 import ctypes
 import math
 import subprocess
@@ -41,15 +53,14 @@ from repro_torch.kernels import ssd_scan as sk          # noqa: E402
 HD, NS, CHUNK = 64, 128, 256
 
 
-def build() -> ctypes.CDLL:
+def build(source: Path) -> ctypes.CDLL:
     out = ROOT / "build" / "ssd_scan_phases"
     out.mkdir(parents=True, exist_ok=True)
     so = out / "libssd_scan_phases.so"
-    csrc = ROOT / "src/repro_torch/csrc"
     r = subprocess.run([_lib._nvcc(), "-O3", "-std=c++17", _lib.ARCH,
                         "-DSSD_TRACE", "-Xcompiler", "-fPIC", "-shared",
-                        "-I", str(csrc), "-o", str(so),
-                        str(csrc / "ssd_scan.cu")],
+                        "-I", str(source.parent), "-o", str(so),
+                        str(source)],
                        capture_output=True, text=True)
     if r.returncode != 0:
         raise SystemExit(f"nvcc failed:\n{r.stderr}")
@@ -57,7 +68,10 @@ def build() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan_bf16.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [
         ctypes.POINTER(ll), p, ll, p]
+    lib.ssd_scan_bwd_bf16.argtypes = [p] * 13 + [i] * 6 + [ll] * 6 + [
+        ctypes.POINTER(ll), p, ll, p]
     lib.ssd_trace_read.argtypes = [p, i]
+    lib.ssd_btrace_read.argtypes = [p, i]
     return lib
 
 
@@ -121,6 +135,62 @@ def phases(lib, gen, B, S, nh):
               f"{max(dur):.2f} us")
 
 
+def call_bwd(lib, plan, x, dt, a_log, b, c, dy):
+    """One `ssd_scan_bwd` call through the C entry with `plan`."""
+    B, S, nh, hd = x.shape
+    outs = (torch.empty_like(x), torch.empty(B, S, nh, device="cuda"),
+            torch.empty(nh, device="cuda"), torch.empty_like(b),
+            torch.empty_like(c))
+    ws = torch.empty(plan.workspace_bytes // 4, device="cuda")
+    rc = lib.ssd_scan_bwd_bf16(
+        x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+        c.data_ptr(), None, dy.data_ptr(), None,
+        *(t.data_ptr() for t in outs), B, S, nh, hd, NS, CHUNK,
+        x.stride(0), x.stride(1), b.stride(0), b.stride(1), c.stride(0),
+        c.stride(1), plan.c_plan, ws.data_ptr(), plan.workspace_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise SystemExit(f"ssd_scan_bwd: CUDA error {rc}")
+    return outs
+
+
+def bwd_phases(lib, gen, B, S, nh=80):
+    """The block sums of the backward's chunk-term kernels at (B, S)."""
+    args = inputs(gen, B, S, nh)
+    dy = torch.randn(B, S, nh, HD, generator=gen, device="cuda")
+    plan = sk.plan_bwd(B, S, nh, HD, NS, CHUNK)
+    for _ in range(2):                  # the last call is the one read
+        lib.ssd_trace_clear()
+        call_bwd(lib, plan, *args, dy)
+        torch.cuda.synchronize()
+    for k in range(3):
+        buf = np.zeros(8192 * 8, dtype=np.uint64)
+        lib.ssd_btrace_read(buf.ctypes.data, k)
+        t = buf.reshape(8192, 8).astype(np.int64)
+        t = t[t[:, 0] > 0]
+        if not len(t):
+            continue
+        t0, t1 = t[:, 0].min(), t[:, 1].max()
+        starts, ends = (t[:, 0] - t0) / 1e3, (t[:, 1] - t0) / 1e3
+        busy = (t[:, 1] - t[:, 0]) / 1e3
+        print(f"== bwd chunk-term kernel {k} {(B, S, nh)}: {len(t)} blocks; "
+              f"span {(t1 - t0) / 1e3:.1f} us; block start median "
+              f"{np.median(starts):.1f} max {starts.max():.1f} us; block end "
+              f"min {ends.min():.1f} median {np.median(ends):.1f} max "
+              f"{ends.max():.1f} us")
+        for s_, name in ((2, "waits for tiles"), (3, "products"),
+                         (4, "stores")):
+            v = t[:, s_] / 1e3
+            print(f"   {name:16s} a block: median {np.median(v):9.1f} max "
+                  f"{v.max():9.1f} us; {v.sum() / busy.sum():.3f} of block "
+                  f"time")
+        print(f"   block time: median {np.median(busy):.1f} max "
+              f"{busy.max():.1f} us; items a block: median "
+              f"{np.median(t[:, 5]):.0f} max {t[:, 5].max()}")
+    ms = graph_ms(lambda: call_bwd(lib, plan, *args, dy), calls=3, reps=3)
+    print(f"== ssd_scan_bwd {(B, S, nh)} traced build: {ms:.4f} ms a call")
+
+
 def graph_ms(fn, calls=20, reps=5) -> float:
     """Device ms of one `fn()` by CUDA-graph replay, median of reps."""
     s = torch.cuda.Stream()
@@ -161,13 +231,23 @@ def sweep(lib, gen):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--backward", action="store_true",
+                    help="trace only the backward's chunk-term kernels")
+    ap.add_argument("--source", type=Path,
+                    default=ROOT / "src/repro_torch/csrc/ssd_scan.cu")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    traced = build()
+    traced = build(args.source)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, S in ((8, 4096), (1, 333)):
+        bwd_phases(traced, gen, B, S)
+    if args.backward:
+        return 0
     for B, S, nh in ((1, 512, 80), (1, 512, 8), (8, 512, 80)):
         phases(traced, gen, B, S, nh)
     sweep(_lib.lib(), gen)
